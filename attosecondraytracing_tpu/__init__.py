@@ -1,9 +1,10 @@
-"""attosecondraytracing_tpu — a TPU-native attosecond ray-tracing framework.
+"""attosecondraytracing_tpu — an attosecond ray-tracing framework in JAX.
 
 A from-scratch re-design of the capabilities of mightymightys/
-AttosecondRaytracing ("ART") for TPUs: structure-of-arrays ray bundles traced
-by batched, differentiable JAX/XLA kernels (with a fused Pallas fast path),
-sharded over device meshes for scale-out, with the reference's user-facing
+AttosecondRaytracing ("ART") for accelerators: structure-of-arrays ray
+bundles traced by batched, differentiable JAX/XLA programs (with a fused
+in-jit-source engine for production sizes), sharded over device meshes for
+scale-out, with the reference's user-facing
 semantics (CONFIG scripts, OEPlacement auto-alignment, detector analysis,
 spot/delay diagrams, Monte-Carlo tolerancing) kept intact.
 

@@ -23,7 +23,6 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..analysis import stats
 from ..ops.bundle import RayBundle
@@ -52,12 +51,11 @@ def _perturb_one(element, angles, shifts):
     """Apply (pitch, roll, yaw) rotations about the element's (cross, major,
     normal) axes and shifts along (normal, major, cross) — differentiable
     device-side counterpart of rotate_*_by/shift_along_*."""
-    import jax
-
     rot = element.rot  # rows: majoraxis, cross(=n x m), normal (lab frame)
     m, c, n = rot[0], rot[1], rot[2]
-    # full-f32 matmuls: the TPU bf16 default would perturb the composed pose
-    # by ~1e-3 — far above any alignment parameter being optimized
+    # full-f32 matmuls: a reduced-precision default (bf16 or TF32 passes)
+    # would perturb the composed pose by ~1e-3 — far above any alignment
+    # parameter being optimized
     with jax.default_matmul_precision("float32"):
         R_delta = (
             rotation_around_axis(c, angles[0])
@@ -133,6 +131,11 @@ def alignment_step(
     return new_params, loss
 
 
+_value_and_grad = jax.jit(
+    jax.value_and_grad(focus_loss),
+    static_argnames=("duration_weight", "survival_weight", "ignore_defects"))
+
+
 def gradient_align(
     chain,
     detector,
@@ -142,7 +145,6 @@ def gradient_align(
     survival_weight: float = 1.0,
     params: AlignmentParams | None = None,
     verbose: bool = False,
-    engine: str = "auto",
 ):
     """Host convenience loop: Adam-descend the alignment of a chain onto a
     fixed detector plane; returns (params, loss history).
@@ -150,63 +152,28 @@ def gradient_align(
     Adam's per-parameter normalization matters here: spot-variance gradients
     w.r.t. angles are ~f^2 larger than w.r.t. shifts, so plain SGD needs
     per-axis learning rates. ``lr`` is therefore an angle/shift step scale
-    (radians/mm per iteration ceiling).
-
-    ``engine``: "auto" uses the fused Pallas forward-mode gradient engine
-    (ops/pallas_grad.py — O(1) gradient memory, one kernel pass per
-    parameter) when the chain's source is fused-traceable, the bundle is
-    production-size, and the backend is a TPU; "pallas"/"xla" force either
-    path. The XLA path is reverse-mode through the batched trace.
+    (radians/mm per iteration ceiling). Gradients are reverse-mode through
+    the streamed trace; the source bundle and elements are jit arguments
+    (uploaded once), not compile-time constants.
     """
     import optax
 
     elements = chain.device_elements()
-    source = chain.source_rays
-    det_rot = detector._plane_rotation()
+    source = jax.device_put(chain.source_rays)
     if params is None:
         params = zero_params(len(elements), dtype=jnp.float32)
     opt = optax.adam(lr)
     opt_state = opt.init(params)
     centre = jnp.asarray(detector.centre)
     normal = jnp.asarray(detector.normal)
-    rot = jnp.asarray(det_rot)
-
-    use_fused = engine == "pallas"
-    if engine == "auto":
-        from ..models.chain import PALLAS_MIN_RAYS
-
-        use_fused = (
-            chain.source_spec is not None
-            and source.n_rays >= PALLAS_MIN_RAYS
-            and chain._pallas_eligible(elements)
-        )
-
-    if use_fused:
-        from ..ops import pallas_grad as pg
-
-        spec = pg.make_loss_spec(
-            chain.source_spec, elements, detector.centre, detector.normal,
-            duration_weight=duration_weight, survival_weight=survival_weight,
-        )
-        src_rot = np.asarray(chain.source_spec.baked().rot)
-        src_origin = np.asarray(chain.source_spec.origin)
-
-        def value_and_grad(p):
-            return pg.fused_focus_value_and_grad(
-                p, spec, elements, src_rot, src_origin,
-                detector.centre, detector.normal, det_rot,
-            )
-    else:
-        @jax.jit
-        def value_and_grad(p):
-            return jax.value_and_grad(focus_loss)(
-                p, source, elements, centre, normal, rot,
-                duration_weight=duration_weight, survival_weight=survival_weight,
-            )
+    rot = jnp.asarray(detector._plane_rotation())
 
     history = []
     for i in range(iters):
-        loss, grads = value_and_grad(params)
+        loss, grads = _value_and_grad(
+            params, source, elements, centre, normal, rot,
+            duration_weight=duration_weight, survival_weight=survival_weight,
+        )
         updates, opt_state = opt.update(grads, opt_state)
         params = optax.apply_updates(params, updates)
         history.append(float(loss))

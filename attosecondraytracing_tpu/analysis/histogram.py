@@ -57,19 +57,18 @@ def binned_sums(ix, iy, cols, bins, precision=None):
     """K weighted 2-D histograms via blocked ONE-HOT MATMULS instead of
     scatter-add.
 
-    TPU has no fast scatter — ``.at[flat].add`` costs ~60 ns/ray (it made a
-    1e8-ray 256² image take ~7.5 s while the trace was ~20 ms). A histogram
-    is an outer-product accumulation though: ``W_k = Ex^T @ (col_k ∘ Ey)``
-    with Ex/Ey the row/column one-hot matrices — a shape the MXU eats
-    (measured 25-35 ms per 2^23 rays at 256²). All K images ride ONE matmul
-    per block by stacking the K weighted Ey copies along the columns.
-    One-hot entries are exact in every matmul precision; pass
-    ``precision=jax.lax.Precision.HIGHEST`` for full input-dtype accuracy
-    of the value columns (the default TPU precision rounds f32 inputs to
-    bf16, a ~2⁻⁸-relative unbiased per-element error that averages out in
-    pixel sums — fine for images, not for exactness tests). Linear in
-    ``cols`` ⇒ differentiable in the weights. Returns a tuple of K
-    ``bins``-shaped images."""
+    A histogram is an outer-product accumulation: ``W_k = Ex^T @ (col_k ∘
+    Ey)`` with Ex/Ey the row/column one-hot matrices, a dense matrix product
+    with no write conflicts (a scatter-add ``.at[flat].add`` is the plain
+    alternative; which is faster on a given device is a measurement). All K
+    images ride ONE matmul per block by stacking the K weighted Ey copies
+    along the columns. One-hot entries are exact in every matmul precision;
+    pass ``precision=jax.lax.Precision.HIGHEST`` for full input-dtype
+    accuracy of the value columns (a default precision may round f32 inputs
+    to TF32 or bf16, a 2⁻¹¹..2⁻⁸-relative unbiased per-element error that
+    averages out in pixel sums — fine for images, not for exactness tests).
+    Linear in ``cols`` ⇒ differentiable in the weights. Returns a tuple of
+    K ``bins``-shaped images."""
     bx, by = bins
     dtype = cols[0].dtype
     n = ix.shape[0]

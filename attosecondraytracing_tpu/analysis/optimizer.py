@@ -11,7 +11,7 @@ vmapped device call (the whole scan is ~(Precision+1) tiny XLA launches
 instead of 20*(Precision+1) python-loop re-traces of the detector response).
 A closed-form quadratic "focus finder" is also provided: on a fixed ray
 bundle both spot-variance and delay-variance are exact quadratics in the
-detector shift, so the optimum needs no search at all (TPU-friendly,
+detector shift, so the optimum needs no search at all (one reduction,
 differentiable) — use it when reference-exact optimizer parity is not needed.
 """
 
@@ -134,12 +134,12 @@ def _probe_focus_estimate(bundle, det, amplitude, weights=None):
     """Rough focal shift [mm, shiftByDistance convention] from a small traced
     probe bundle: closed-form minimum of the host-float64 spot variance of
     the exact per-ray linear impact model ``x(d) = x0 - d*cx`` (a global
-    quadratic in d). Only used to centre the fused kernel's moment expansion
+    quadratic in d). Only used to centre the fused pass's moment expansion
     point near the focus; a few-percent error is irrelevant there.
 
     ``weights``: optional per-ray weights (e.g. the Gaussian source profile)
     so the expansion point matches the intensity-weighted moments the fused
-    kernel accumulates."""
+    pass accumulates."""
     alive = np.asarray(bundle.alive)
     if not alive.any():
         return 0.0
@@ -178,7 +178,7 @@ def _probe_focus_estimate(bundle, det, amplitude, weights=None):
     return float(np.clip(-B / (2.0 * A), -amplitude, amplitude))
 
 
-def FindOptimalDistancePallas(
+def FindOptimalDistanceFused(
     spec,
     elements,
     n_rays: int,
@@ -192,44 +192,41 @@ def FindOptimalDistancePallas(
     last_moments: dict | None = None,
 ):
     """Detector-distance optimization without ever materializing the bundle —
-    and without a refinement loop: ONE fused trace->moments kernel pass
-    (ops.pallas_trace.pallas_source_detector_moments) determines every
-    per-distance statistic as an EXACT quadratic in the scan distance (the
-    alive mask cannot depend on the detector position, so the quadratics
-    hold globally), and the fitness is minimized on the host in float64 at
+    and without a refinement loop: ONE fused trace->moments pass
+    (ops.xla_source.xla_source_moments) determines every per-distance
+    statistic as an EXACT quadratic in the scan distance (the alive mask
+    cannot depend on the detector position, so the quadratics hold
+    globally), and the fitness is minimized on the host in float64 at
     arbitrary resolution. The reference's whole iterative refinement
     (ART/ModuleProcessing.py:317-460: Precision+1 rounds of 20-point scans)
-    collapses to a single ~1 ms kernel launch at any ray count.
+    collapses to a single device pass at any ray count.
 
-    ``spec`` is an ops.pallas_trace.BakedSource; ``Detector`` supplies the
+    ``spec`` is an ops.source.BakedSource; ``Detector`` supplies the
     starting plane; ``Amplitude`` bounds the search window (auto-sized from
     spot and NA like the reference); ``Precision`` sets the target grid
     resolution ``Amplitude * 10^-(Precision+1)`` — the reference's final
     refinement step — reached by zooming the *host-side* (free) quadratic
     evaluation of the one moment pass, so any Precision costs zero extra
     device work. A cheap probe trace pre-locates the
-    focus so the kernel's moment expansion point sits near it (squaring
-    multi-mm off-focus coordinates in float32 would bury the focal-plane
-    variance — see ops.pallas_trace.moment_rows). Gaussian source weighting
-    via ``gaussian_edge``. Duration readings carry the stats kernel's
-    ~0.6 fs float32 noise floor.
+    focus so the moment expansion point sits near it (squaring multi-mm
+    off-focus coordinates in float32 would bury the focal-plane variance —
+    see ops.moments.moment_sums). Gaussian source weighting via
+    ``gaussian_edge``. Duration readings carry the fused pass's ~0.6 fs
+    float32 noise floor; optima below it are refined in float64.
 
     ``moments_fn(det_centre, det_normal, det_rot, gaussian_edge,
-    centre_distance)`` overrides the moment provider — the fused *scan*
-    engine (ops/pallas_scan.make_moments_fn) passes a closure over the
-    shared runtime-scalar kernel so a whole parameter scan optimizes with
-    ONE compile. ``last_moments`` (a dict, if given) receives the moment
+    centre_distance)`` overrides the moment provider — the driver's scan
+    engine passes ops.xla_source.make_xla_moments_fn closures, whose
+    geometry stays on the device across calls. ``last_moments`` (a dict, if
+    given) receives the moment
     record actually used — its ``moments[0]`` is the distance-independent
     surviving weight, i.e. the scan driver's transmission numerator.
 
     Returns (optimal Detector copy, spot SD [mm], duration SD [fs]).
     """
-    from ..ops.pallas_trace import (
-        moments_to_distance_sums,
-        pallas_source_detector_moments,
-        source_bundle,
-        sums_to_stats,
-    )
+    from ..ops import xla_source
+    from ..ops.moments import moments_to_distance_sums, sums_to_stats
+    from ..ops.source import source_bundle, synth_source_c
     from ..ops.trace import trace_jit
 
     if OptFor not in _OPTFOR_ALIASES:
@@ -253,7 +250,7 @@ def FindOptimalDistancePallas(
         probe_n = n_each_p * spec.n_sources
     probe = source_bundle(probe_spec, probe_n)
     out = trace_jit(probe, elements, keep_history=False)
-    # probe weights = the same Gaussian-vs-radial-law profile the kernel
+    # probe weights = the same Gaussian-vs-radial-law profile the engine
     # applies (weight = edge**rr with rr from synth_source_c — k/n for plain
     # spirals, the per-cone law for 'extended'), so both the auto-Amplitude
     # and the expansion point match the weighted moments (source_bundle
@@ -261,8 +258,6 @@ def FindOptimalDistancePallas(
     if gaussian_edge is None:
         probe_w = np.ones(out.n_rays)
     else:
-        from ..ops.pallas_trace import synth_source_c
-
         _, _, rr = synth_source_c(
             probe_spec.kind, np.arange(probe_n, dtype=np.float32), probe_n,
             probe_spec.radius, pos_radius=probe_spec.pos_radius,
@@ -276,13 +271,13 @@ def FindOptimalDistancePallas(
         Amplitude = min(4 * np.ceil(size_spot / np.tan(np.arcsin(min(na, 1.0)))), first_distance)
     amplitude = float(Amplitude)
 
-    # probe-based focus pre-estimate = the kernel's moment expansion point:
+    # probe-based focus pre-estimate = the fused pass's expansion point:
     # host float64 evaluation of the same exact quadratics on ~4k rays
     d_centre = float(_probe_focus_estimate(out, det, amplitude, weights=probe_w))
 
     rot = det._plane_rotation()
     if moments_fn is None:
-        mom = pallas_source_detector_moments(
+        mom = xla_source.xla_source_moments(
             spec, elements, n_rays, det.centre, det.normal, rot,
             gaussian_edge=gaussian_edge, centre_distance=d_centre,
         )
@@ -326,32 +321,17 @@ def FindOptimalDistancePallas(
 
     det.shiftByDistance(base_shift)
 
-    # float32 noise-floor guard: the stats kernel's duration readings carry
-    # ~0.6 fs of per-ray OPL noise (documented at ops/pallas_trace.py,
-    # pallas_source_detector_stats). When the optimum sits within ~2x that
-    # floor, the fitness landscape near the focus is flat noise and the
-    # argmin is arbitrary within it — refine with the two-pass float64 path
-    # (or at least say so loudly).
+    # float32 noise-floor guard: fused duration readings carry ~0.6 fs of
+    # per-ray OPL noise (ops.xla_source.xla_source_detector_stats). When the
+    # optimum sits within ~2x that floor, the fitness landscape near the
+    # focus is flat noise and the argmin is arbitrary within it — refine
+    # with the two-pass float64 path
     if opt_for in ("duration", "intensity") and opt_duration < DURATION_F32_FLOOR_FS:
-        refined = _x64_refine_distance(
+        det, opt_spot, opt_duration = _x64_refine_distance(
             spec, elements, n_rays, det, OptFor,
             amplitude=amplitude * 0.1 ** max(Precision - 1, 0),
             gaussian_edge=gaussian_edge, verbose=verbose,
         )
-        if refined is not None:
-            det, opt_spot, opt_duration = refined
-        else:
-            import warnings
-
-            warnings.warn(
-                f"FindOptimalDistancePallas: best duration_sd "
-                f"{opt_duration:.3g} fs is below the ~{DURATION_F32_FLOOR_FS:.1f} fs "
-                f"float32 noise floor and float64 refinement is unavailable on "
-                f"this backend; the returned distance is only accurate to the "
-                f"flat region of the fitness. For sub-fs focus metrology run "
-                f"FindOptimalDistance on an x64 backend.",
-                stacklevel=2,
-            )
     if verbose:
         print(
             f"Optimal detector distance {det.get_distance():.3f} mm "
@@ -360,7 +340,7 @@ def FindOptimalDistancePallas(
     return det, opt_spot, opt_duration
 
 
-#: ~2x the documented ~0.6 fs float32 OPL noise of the fused stats kernel
+#: ~2x the documented ~0.6 fs float32 OPL noise of the fused moment pass
 DURATION_F32_FLOOR_FS = 1.2
 
 
@@ -368,50 +348,40 @@ def _x64_refine_distance(spec, elements, n_rays, det, OptFor, amplitude,
                          gaussian_edge, verbose, max_rays: int = 20000):
     """Final float64 refinement for sub-noise-floor duration optima: rebuild
     the (reference-semantics, float64 NumPy) source from the BakedSource,
-    trace it on the XLA path under x64, and run the grid-refinement optimizer
-    in the last window of the kernel scan. Returns (det, spot, duration) or
-    None when the backend cannot do float64 (TPU without x64)."""
-    import jax
-
+    trace it on the streamed path under x64, and run the grid-refinement
+    optimizer in the last window of the fused scan. Returns (det, spot,
+    duration); a failure raises (every supported backend runs float64)."""
     from ..models import sources as msource
+    from ..ops.trace import trace_jit
 
-    enable_x64 = getattr(jax, "enable_x64", None)
-    if enable_x64 is None:
-        return None
+    origin = np.asarray(spec.origin)
     axis = np.asarray(spec.rot, np.float64) @ np.array([0.0, 0.0, 1.0])
     n = min(n_rays, max_rays)
     if spec.kind == "cone":
-        bundle = msource.PointSource(np.asarray(spec.origin), axis,
-                                     float(np.arctan(spec.radius)), n)
-    else:
-        bundle = msource.PlaneWaveDisk(np.asarray(spec.origin), axis,
-                                       float(spec.radius), n)
+        bundle = msource.PointSource(origin, axis, float(np.arctan(spec.radius)), n)
+    elif spec.kind == "disk":
+        bundle = msource.PlaneWaveDisk(origin, axis, float(spec.radius), n)
+    elif spec.kind == "extended":
+        bundle = msource.ExtendedSource(origin, axis, 2.0 * spec.pos_radius,
+                                        float(np.arctan(spec.radius)), n)
+    else:  # 'square': radius carries the side length
+        bundle = msource.PlaneWaveSquare(origin, axis, float(spec.radius), n)
     if gaussian_edge is not None:
         bundle = msource.ApplyGaussianIntensityToRayList(bundle, gaussian_edge)
-    try:
-        with enable_x64():
-            # packed jitted trace: the executable is cached across the
-            # chains of a scan (a fresh jit(lambda...) here used to pay a
-            # full f64 recompile per refining chain — ~80 s each on TPU)
-            from ..ops.trace import trace_jit
 
-            out = trace_jit(
-                jax.tree.map(lambda x: np.asarray(x, np.float64)
-                             if np.issubdtype(np.asarray(x).dtype, np.floating) else x,
-                             bundle),
-                jax.tree.map(lambda x: np.asarray(x, np.float64)
-                             if np.issubdtype(np.asarray(x).dtype, np.floating) else x,
-                             elements),
-                keep_history=False,
-            )
-            det2, spot, duration = FindOptimalDistance(
-                det, out, OptFor, Amplitude=float(amplitude), Precision=2,
-                IntensityWeighted=gaussian_edge is not None, verbose=False,
-            )
-    except Exception as exc:
-        if verbose:
-            print(f"(float64 refinement unavailable: {type(exc).__name__}: {exc})")
-        return None
+    def f64(x):
+        x = np.asarray(x)
+        return x.astype(np.float64) if np.issubdtype(x.dtype, np.floating) else x
+
+    with jax.enable_x64():
+        # packed jitted trace: the executable is cached across the chains of
+        # a scan (one float64 compile, not one per refining chain)
+        out = trace_jit(jax.tree.map(f64, bundle), jax.tree.map(f64, elements),
+                        keep_history=False)
+        det2, spot, duration = FindOptimalDistance(
+            det, out, OptFor, Amplitude=float(amplitude), Precision=2,
+            IntensityWeighted=gaussian_edge is not None, verbose=False,
+        )
     if verbose:
         print("(duration near the float32 noise floor: refined with the "
               "two-pass float64 optimizer)")
@@ -419,7 +389,7 @@ def _x64_refine_distance(spec, elements, n_rays, det, OptFor, amplitude,
 
 
 # ---------------------------------------------------------------------------
-# closed-form focus finder (TPU-native fast path)
+# closed-form focus finder
 # ---------------------------------------------------------------------------
 
 

@@ -213,7 +213,7 @@ def GigaRayImages(res: dict, title: str = ""):
     """Intensity image + mean-delay map from a
     :func:`attosecondraytracing_tpu.analysis.gigascan.fused_source_images`
     result: the detector images at ray counts far beyond any traced bundle
-    (the source is synthesized chunk-wise inside the fused kernel and binned
+    (the source is synthesized chunk-wise inside the fused engine and binned
     on device)."""
     lo, hi = res["extent"]
     mid = 0.5 * (np.asarray(lo) + np.asarray(hi))

@@ -99,7 +99,8 @@ def detector_points_2d(bundle: RayBundle, centre, normal, rot):
     host-precomputed rotation taking ``normal`` -> ez (RotationPointList
     convention)."""
     pts3, _ = detector_points_3d(bundle, centre, normal)
-    # full-f32 matmul precision: the TPU default (bfloat16 passes) would add
+    # full-f32 matmul precision: a reduced-precision default (bf16 or TF32
+    # passes) would add
     # ~4e-3-relative noise to the in-plane coordinates — micrometres on a
     # millimetre-offset spot, swamping micron-scale foci
     local = jnp.matmul(pts3 - centre, rot.T,

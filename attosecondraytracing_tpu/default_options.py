@@ -23,13 +23,13 @@ def default_analysis_options() -> dict:
         "plot_IntensityMirrorProjection": False,
         "plot_IncidenceMirrorProjection": False,
         "save_results": True,
-        # TPU-native additions (not in ART/DefaultOptions.py): spot/delay
+        # additions (not in ART/DefaultOptions.py): spot/delay
         # plots render as device-binned images instead of per-ray scatters —
         # "auto" switches at production bundle sizes where gathering every
         # ray to the host is impractical; True/False force either mode
         "image_plots": "auto",
         "image_bins": 256,
-        # render the spot/delay images from THIS many in-kernel-synthesized
+        # render the spot/delay images from THIS many in-jit-synthesized
         # rays (analysis/gigascan) instead of the traced bundle — detector
         # images at ray counts far beyond what fits in memory (e.g. 1e9).
         # Requires a chain built by OEPlacement from a point/plane-wave

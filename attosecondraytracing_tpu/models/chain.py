@@ -11,8 +11,6 @@ scans don't recompile.
 from __future__ import annotations
 
 import copy
-import os
-import sys
 from typing import NamedTuple
 
 import jax
@@ -26,8 +24,8 @@ from . import sources as msource
 
 
 class FusedSourceInfo(NamedTuple):
-    """Host-side description of a source that the fused Pallas kernels can
-    synthesize in-kernel (ops.pallas_trace.BakedSource inputs + the Gaussian
+    """Host-side description of a source that the fused engines can
+    synthesize in-jit (ops.source.BakedSource inputs + the Gaussian
     intensity edge). Attached to an OpticalChain by OEPlacement; kept in sync
     by shift_source/tilt_source; cleared when the user replaces the bundle."""
 
@@ -41,18 +39,23 @@ class FusedSourceInfo(NamedTuple):
     diameter: float = 0.0  # source-disk diameter [mm] ('extended' only)
 
     def baked(self):
-        from ..ops.pallas_trace import make_source_spec
+        from ..ops.source import make_source_spec
 
         return make_source_spec(self.kind, np.asarray(self.origin),
                                 np.asarray(self.axis), self.param,
                                 diameter=self.diameter, n_rays=self.n_rays)
 
 
-#: bundles below this size stay on the XLA path under engine="auto": the
-#: Pallas kernels bake chain geometry as compile-time constants, so every
-#: distinct chain costs a fresh Mosaic compile — worth it for production-size
-#: bundles, pure overhead for the reference-default 1000 rays.
-PALLAS_MIN_RAYS = int(os.environ.get("ART_TPU_PALLAS_MIN_RAYS", "200000"))
+#: bundles below this size stay on the streamed trace under engine="auto":
+#: the fused engines compile once per chain structure, worth it for
+#: production-size bundles, pure overhead for the reference-default 1000 rays
+FUSED_MIN_RAYS = 200_000
+
+
+def on_accelerator() -> bool:
+    """True when JAX's default backend is an accelerator. On the CPU the
+    streamed trace stays the production engine."""
+    return jax.default_backend() != "cpu"
 
 
 #: packed jitted trace (one flat element transfer, executable shared across
@@ -93,7 +96,8 @@ class OpticalChain:
         self._last_source_hash = None
         self._last_elements_hash = None
         #: engine used by the most recent trace_final call:
-        #: "xla" | "pallas" | "pallas-source" (None before the first trace)
+        #: "xla" | "xla-source", or "xla-scan" after a fused driver scan
+        #: (None before the first trace)
         self.last_trace_engine = None
 
     # ------------------------------------------------------------------
@@ -115,7 +119,7 @@ class OpticalChain:
     @property
     def source_spec(self) -> FusedSourceInfo | None:
         """Fused-source description when the current source bundle is known to
-        be an in-kernel-synthesizable Vogel source (None otherwise)."""
+        be a synthesizable Vogel source (None otherwise)."""
         return self._source_spec
 
     def resize_source(self, n_rays: int) -> None:
@@ -177,131 +181,48 @@ class OpticalChain:
             self._last_elements_hash = el_hash
         return self._output_rays
 
-    def _pallas_eligible(self, elements) -> bool:
-        """True when the fused Pallas kernel can trace this chain: a non-CPU
-        backend (CPU only has the slow interpreter) and no *grid* defect maps
-        (Fourrier/MeasuredMap interpolation needs gathers the kernel does not
-        do; Zernike defects evaluate in-kernel — see ops/pallas_trace.py)."""
-        from ..ops.defects import ZernikeDefect
-        from ..ops.trace import MirrorElement
+    def fused_eligible(self) -> bool:
+        """True when ``engine="auto"`` picks the fused-source engines for this
+        chain: a synthesizable source (``source_spec``), a production-size
+        bundle (>= FUSED_MIN_RAYS) and an accelerator backend."""
+        spec = self._source_spec
+        return (spec is not None and spec.n_rays >= FUSED_MIN_RAYS
+                and on_accelerator())
 
-        if jax.default_backend() == "cpu":
-            return False
-        return all(
-            all(isinstance(d, ZernikeDefect) for d in el.defects)
-            for el in elements
-            if isinstance(el, MirrorElement)
-        )
-
-    def trace_final(self, ignore_defects: bool = True, engine: str | None = None) -> RayBundle:
+    def trace_final(self, ignore_defects: bool = True, engine: str = "auto") -> RayBundle:
         """Only the bundle after the last element (no history buffers — the
         production path for statistics, detector optimization and benchmarks).
 
-        ``engine``: "auto" (default; override with ART_TPU_ENGINE) routes
-        production-size bundles (>= PALLAS_MIN_RAYS rays) through the fused
-        Pallas whole-chain kernel on TPU — the in-kernel-source variant when
-        the chain's source is a factory Vogel source (``source_spec``), the
-        streamed variant otherwise — with transparent fallback to the XLA
-        trace; chains the Mosaic kernel cannot take (grid defect maps) but
-        whose source is synthesizable route to the XLA fused-source engine
-        (in-jit source + chained frames, ops/xla_source.py) at production
-        sizes; "pallas" forces the fused kernel (raises if unsupported);
-        "xla-source" forces the XLA fused-source engine; "xla" forces the
-        reference-parity streamed XLA path. The engine actually used is
-        recorded in ``self.last_trace_engine``.
+        ``engine``: "auto" routes production-size chains with a synthesizable
+        source through the XLA fused-source engine (in-jit source + chained
+        frames, ops/xla_source.py) on an accelerator, and everything else
+        through the reference-parity streamed trace; "xla-source" and "xla"
+        force either. The engine actually used is recorded in
+        ``self.last_trace_engine``. A failing engine raises: there is no
+        silent fallback.
         """
-        engine = engine or os.environ.get("ART_TPU_ENGINE", "auto")
-        if engine not in ("auto", "pallas", "xla", "xla-source"):
-            raise ValueError(
-                'engine must be one of "auto", "pallas", "xla", "xla-source"')
+        if engine not in ("auto", "xla", "xla-source"):
+            raise ValueError('engine must be one of "auto", "xla", "xla-source"')
         elements = self.device_elements()
-        n_rays = self.source_rays.n_rays
-        want_pallas = engine == "pallas" or (
-            engine == "auto"
-            and n_rays >= PALLAS_MIN_RAYS
-            and self._pallas_eligible(elements)
-        )
-        if want_pallas and engine == "auto":
-            # cold-process warmup weighing (VERDICT r3 #6): the first Pallas
-            # kernel of a process pays minutes of Mosaic warmup on this TPU;
-            # for a small one-shot trace the XLA path (itself >1e9 rays/s)
-            # finishes long before the warmup would
-            from ..ops import warmup
+        if engine == "xla-source" or (engine == "auto" and self.fused_eligible()):
+            spec = self._source_spec
+            if spec is None:
+                raise ValueError(
+                    'engine="xla-source" needs a synthesizable source '
+                    "(source_spec is None: the bundle was user-supplied)")
+            from ..ops.xla_source import xla_trace_source
 
-            if (jax.default_backend() != "cpu" and not warmup.mosaic_warm()
-                    and n_rays < warmup.BREAKEVEN_RAYS):
-                print(
-                    f"[attosecondraytracing_tpu] staying on the XLA engine for "
-                    f"this {n_rays}-ray trace: the one-time Mosaic warmup "
-                    f"(minutes) exceeds the XLA cost at this size. Force with "
-                    f"ART_TPU_ENGINE=pallas or ART_TPU_ASSUME_WARM=1.",
-                    file=sys.stderr,
-                    flush=True,
-                )
-                want_pallas = False
-        if want_pallas:
-            try:
-                out = self._trace_final_pallas(elements, ignore_defects)
-                return out
-            except Exception as exc:
-                if engine == "pallas":
-                    raise
-                print(
-                    f"[attosecondraytracing_tpu] fused Pallas trace unavailable "
-                    f"({type(exc).__name__}: {exc}); falling back to the XLA path.",
-                    file=sys.stderr,
-                    flush=True,
-                )
-        spec = self._source_spec
-        want_xla_source = engine == "xla-source" or (
-            engine == "auto"
-            and not want_pallas
-            and spec is not None
-            and spec.kind in ("cone", "disk", "extended", "square")
-            and n_rays >= PALLAS_MIN_RAYS
-            and jax.default_backend() != "cpu"
-        )
-        if want_xla_source:
-            try:
-                from ..ops.xla_source import xla_trace_source
-
-                out = xla_trace_source(
-                    spec.baked(), elements, spec.n_rays,
-                    wavelength=spec.wavelength, ignore_defects=ignore_defects,
-                )
-                out = out._replace(intensity=jnp.asarray(self.source_rays.intensity))
-                self.last_trace_engine = "xla-source"
-                return out
-            except Exception as exc:
-                if engine == "xla-source":
-                    raise
-                print(
-                    f"[attosecondraytracing_tpu] XLA fused-source trace "
-                    f"unavailable ({type(exc).__name__}: {exc}); falling back "
-                    f"to the streamed XLA path.",
-                    file=sys.stderr,
-                    flush=True,
-                )
+            out = xla_trace_source(
+                spec.baked(), elements, spec.n_rays,
+                wavelength=spec.wavelength, ignore_defects=ignore_defects,
+            )
+            # ray i of the in-jit spiral is ray i of the factory bundle, so
+            # the source intensity profile rides along by index
+            out = out._replace(intensity=jnp.asarray(self.source_rays.intensity))
+            self.last_trace_engine = "xla-source"
+            return out
         self.last_trace_engine = "xla"
         return _traced(self.source_rays, elements, ignore_defects, False)
-
-    def _trace_final_pallas(self, elements, ignore_defects: bool = True) -> RayBundle:
-        from ..ops import pallas_trace as pt
-
-        spec = self._source_spec
-        if spec is not None and spec.kind in ("cone", "disk", "extended", "square"):
-            out = pt.pallas_trace_source(
-                spec.baked(), elements, spec.n_rays, wavelength=spec.wavelength,
-                ignore_defects=ignore_defects,
-            )
-            # ray i of the kernel's in-kernel spiral is ray i of the factory
-            # bundle, so the source intensity profile rides along by index
-            out = out._replace(intensity=jnp.asarray(self.source_rays.intensity))
-            self.last_trace_engine = "pallas-source"
-            return out
-        out = pt.pallas_trace(self.source_rays, elements, ignore_defects=ignore_defects)
-        self.last_trace_engine = "pallas"
-        return out
 
     # ------------------------------------------------------------------
     # visualization

@@ -31,8 +31,8 @@ def _build_source(SourceProperties: dict, optics_list):
     """(source bundle, FusedSourceInfo) per the reference's rules
     (ART/ModuleProcessing.py:55-79): plane wave / point / extended source +
     Gaussian intensity to 1/e^2. Every kind gets a fused-source description
-    so the production trace can synthesize it in-kernel (extended sources
-    via the nested-spiral index decode, ops/pallas_trace.synth_source_c)."""
+    so the fused engines can synthesize it in-jit (extended sources via the
+    nested-spiral index decode, ops/source.synth_source_c)."""
     from .chain import FusedSourceInfo
 
     divergence = SourceProperties["Divergence"]

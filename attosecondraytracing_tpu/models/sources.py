@@ -49,7 +49,7 @@ def PointSource(S, Axis, Divergence: float, NbRays: int, Wavelength=None, dtype=
 def ExtendedSource(S, Axis, Diameter: float, Divergence: float, NbRays: int, Wavelength=None, dtype=None) -> RayBundle:
     """Array of point sources over a disk of ``Diameter``, each emitting a
     cone (ART/ModuleSource.py:85-131; same point-source count heuristics,
-    shared with the in-kernel synthesizer via host_geometry)."""
+    shared with the in-jit synthesizer via host_geometry)."""
     from ..ops.host_geometry import extended_source_counts
 
     n_sources, n_each = extended_source_counts(Diameter, NbRays)
@@ -85,18 +85,18 @@ def PlaneWaveSquareFused(Centre, Axis, SideLength: float, NbRays: int,
                          Wavelength=None, gaussian_edge: float | None = None,
                          dtype=None):
     """:func:`PlaneWaveSquare` plus the fused-source description that lets
-    the in-kernel engines synthesize the grid from the ray index
-    (ops.pallas_trace.synth_source_c kind='square'). Returns
+    the fused engines synthesize the grid from the ray index
+    (ops.source.synth_source_c kind='square'). Returns
     ``(bundle, FusedSourceInfo)`` — pass both to the OpticalChain ctor::
 
         bundle, spec = PlaneWaveSquareFused(S, Axis, 10.0, 1_000_000)
         chain = OpticalChain(bundle, elements, source_spec=spec)
 
-    and the chain becomes eligible for the fused Pallas trace, the one-pass
-    moment optimizer, and the runtime-scalar scan engine, like every other
-    factory source. ``gaussian_edge`` applies
+    and the chain becomes eligible for the fused-source trace, the one-pass
+    moment optimizer, and the fused scan engine, like every other factory
+    source. ``gaussian_edge`` applies
     :func:`ApplyGaussianIntensityToRayList` with that edge fraction and
-    records it in the spec (the fused engines weight in-kernel by the same
+    records it in the spec (the fused engines weight in-jit by the same
     corner-normalized law)."""
     from .chain import FusedSourceInfo
 

@@ -48,12 +48,11 @@ class ZernikeDefect(NamedTuple):
     """Zernike-sum height error over the circumscribed circle of radius R.
 
     ``coeffs`` maps the Andersen (n, m) index (static) to a scalar coefficient
-    (traced), so gradients flow into the coefficients. Inside the Pallas
-    kernel the coefficients arrive as a hashable tuple of ((n, m), float)
-    pairs instead (compile-time constants; see pallas_trace._bake_defect).
+    (traced), so gradients flow into the coefficients. A hashable tuple of
+    ((n, m), float) pairs is accepted too.
     """
 
-    coeffs: dict  # or tuple[((n, m), float), ...] in baked kernel form
+    coeffs: dict  # or tuple[((n, m), float), ...]
     radius: jnp.ndarray  # () circumscribed-circle radius used to normalize
 
 
@@ -66,12 +65,10 @@ def _bilinear_multi(grids, x0, y0, dx, dy, x, y):
     (x, y), sharing one index/weight computation and gathering each corner as
     a packed ``len(grids)``-wide row from a flattened (nx*ny, K) view.
 
-    Gather layout matters enormously on TPU: per-grid 2-D ``grid[ix, iy]``
-    gathers measured 7.3x slower than these packed-row 1-D gathers
-    (scripts/exp_gather_layouts.py, 1e6 rays x 3 maps of 1600^2 on v5e:
-    144.5 ms vs 19.8 ms) — this layout is why the grid-defect engine's
-    interpolation costs ~4 gathers per pass instead of 4 per map, each in
-    XLA's fastest lowering. Returns a list of (N,) values, one per grid."""
+    The packed rows turn 4 gathers per map into 4 gathers per pass (one
+    row read serves every map); whether this beats per-grid 2-D
+    ``grid[ix, iy]`` gathers on the H100 is not measured. Returns a list of
+    (N,) values, one per grid."""
     nx, ny = grids[0].shape
     fx = (x - x0) / dx
     fy = (y - y0) / dy

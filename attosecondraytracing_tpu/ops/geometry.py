@@ -1,6 +1,6 @@
 """Vectorized geometry kernels (JAX).
 
-TPU-native replacement for the reference's per-ray quaternion geometry
+Batched replacement for the reference's per-ray quaternion geometry
 (ART/ModuleGeometry.py). Rotations are plain 3x3 matrices applied as batched
 matmuls; everything is shape-static and differentiable.
 
@@ -43,7 +43,8 @@ def rotation_around_axis(axis, angle):
     K = jnp.array([[0.0, -kz, ky], [kz, 0.0, -kx], [-ky, kx, 0.0]], dtype=k.dtype)
     eye = jnp.eye(3, dtype=k.dtype)
     s, c = jnp.sin(angle), jnp.cos(angle)
-    # full-f32 matmul: the TPU bf16 default would put ~1e-3 error on
+    # full-f32 matmul: a reduced-precision default (bf16 or TF32 passes)
+    # would put ~1e-3 error on
     # rotation entries (~0.5 mm of traced-geometry displacement per 500 mm)
     KK = jnp.matmul(K, K, precision=jax.lax.Precision.HIGHEST)
     return eye + s * K + (1.0 - c) * KK

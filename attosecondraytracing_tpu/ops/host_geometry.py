@@ -95,8 +95,8 @@ def reflect(d, n):
 def extended_source_counts(diameter: float, n_rays: int):
     """(n_sources, n_each) for an extended source: the reference's
     sub-source count heuristics (ART/ModuleSource.py:85-131). Shared by
-    models.sources.ExtendedSource and the in-kernel synthesizer
-    (ops.pallas_trace.make_source_spec) so the two always agree; the total
+    models.sources.ExtendedSource and the in-jit synthesizer
+    (ops.source.make_source_spec) so the two always agree; the total
     emitted ray count is n_sources * n_each (not the requested n_rays)."""
     min_sources, min_rays_each = 30, 300
     n_sources = max(min_sources, int(250 * diameter))

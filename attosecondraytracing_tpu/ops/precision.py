@@ -1,7 +1,7 @@
-"""Precision policy for the TPU-native tracer.
+"""Precision policy for the tracer.
 
-The reference (ART) traces everything in float64 on CPU. TPUs are fast in
-float32 (and bfloat16), so the default trace dtype here is float32, made
+The reference (ART) traces everything in float64 on CPU. Accelerators are
+fast in float32, so the default trace dtype here is float32, made
 accurate by two design choices (see SURVEY.md §7):
 
 * all intersection math happens in the *element-local frame* (the reference's

@@ -1,7 +1,7 @@
 """Mirror surfaces as implicit functions with batched, differentiable,
 Newton-polished intersections (JAX).
 
-TPU-native replacement for ART/ModuleMirror.py's per-ray ``np.roots`` calls
+Batched replacement for ART/ModuleMirror.py's per-ray ``np.roots`` calls
 (ART/ModuleGeometry.py:80-106): every surface provides
 
 * a closed-form (quadratic, or Ferrari-quartic for the toroid) seed for the
@@ -188,9 +188,8 @@ def _residual_c(surface, x, y, z, ux, uy, uz):
 def _polish_candidates(surface, q, u, cands, iters):
     """Newton-polish a static list of (N,) candidate roots; returns a list of
     (t, |g|, (x, y, z)) with all arrays (N,)-shaped. ``q``/``u`` are component
-    triples — never stacked into (N,3): a materialized (N,3) f32 array tiles
-    its minor dim up to the 128-lane register width on TPU, a ~42x HBM
-    blowup if any intermediate spills.
+    triples — never stacked into (N,3), so every intermediate stays a flat
+    (N,) stream that XLA fuses elementwise.
 
     The validity residual |g| is the one evaluated in the *final* iteration
     (i.e. at the (iters-1)-times-corrected root), while the returned t and
@@ -241,7 +240,7 @@ def _solve_quadratic(a, b, c):
     tiny = 1e-30
     linear = jnp.abs(a) < tiny
     # one division with operand-selected numerator/denominator instead of a
-    # division per branch: f32 divide is ~7x a multiply on the TPU VPU
+    # division per branch (a divide costs several multiplies)
     num1 = jnp.where(linear, -c, qq)
     den1 = jnp.where(
         linear,
@@ -550,7 +549,7 @@ def _toroid_fast_root(surface, q, u, t_eps):
 
 def intersect_c(surface, support, q, u, t_eps=T_EPS, tol=HIT_TOL):
     """Component-form intersection: ``q = (x, y, z)``, ``u = (ux, uy, uz)``
-    as (N,) arrays (full-lane layout on TPU). Returns (t, hit)."""
+    as (N,) arrays. Returns (t, hit)."""
     qx, qy, qz = q
     ux, uy, uz = u
 
@@ -561,7 +560,7 @@ def intersect_c(surface, support, q, u, t_eps=T_EPS, tol=HIT_TOL):
         return t, (t > t_eps) & on_sup
 
     if isinstance(surface, Toroid):
-        # float32 = production TPU mode: the osculating-paraboloid seed +
+        # float32 = production mode: the osculating-paraboloid seed +
         # Newton reaches the patch root without the transcendental-heavy
         # Ferrari solve (arccos/cbrt per ray); float64 = parity mode: all 4
         # exact quartic roots, matching the reference's np.roots-based

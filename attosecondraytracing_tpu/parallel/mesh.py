@@ -11,9 +11,10 @@ The domain's natural parallel axes (SURVEY.md §2.2, §5.7):
   ``OpticalChainList`` loop, ARTmain.py:326-332), mapped to ``jax.vmap`` over
   stacked element parameters and optionally sharded across devices.
 
-Element parameters are tiny and replicated. Multi-host TPU slices initialize
-via :func:`distributed_init`; CI uses ``--xla_force_host_platform_device_count``
-to fake an 8-device CPU mesh (same code path).
+Element parameters are tiny and replicated. Multi-host runs initialize via
+:func:`distributed_init`; the tests use
+``--xla_force_host_platform_device_count`` to fake an 8-device CPU mesh (same
+code path as the cards of one host).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..ops.bundle import RayBundle, pad_bundle
+from ..ops.source import PHI_FRAC
 from ..ops.trace import trace
 
 
@@ -118,9 +120,8 @@ def stack_chains(chains):
     """Stack the device elements of structurally-identical chains along a
     leading scan axis; returns (stacked_elements, stacked_sources).
 
-    This is the TPU-native replacement for looping over
-    ``OpticalChainList`` (ARTmain.py:326-332): one vmapped trace evaluates the
-    whole scan at once.
+    This replaces looping over ``OpticalChainList`` (ARTmain.py:326-332):
+    one vmapped trace evaluates the whole scan at once.
     """
     element_lists = [c.device_elements() for c in chains]
     treedefs = {jax.tree_util.tree_structure(e) for e in element_lists}
@@ -154,10 +155,8 @@ def trace_scan_sharded(chains, mesh: Mesh, ignore_defects: bool = True):
 
 
 # ---------------------------------------------------------------------------
-# sharded in-kernel sources: giga-ray traces with O(bytes) communication
+# sharded in-jit sources: giga-ray passes with O(bytes) communication
 # ---------------------------------------------------------------------------
-
-_PHI_FRAC = 0.3819660112501051  # golden turn fraction (ops.pallas_trace)
 
 
 def shard_source_offsets(n_total: int, n_devices: int):
@@ -168,14 +167,82 @@ def shard_source_offsets(n_total: int, n_devices: int):
     golden angle is exact on every shard; ``k_frac`` = offset / n_total feeds
     the global radius law without ever forming a > 2^24 float ray index —
     together they let a mesh trace bundles far beyond the 16M-ray float32
-    index limit of a single kernel call."""
+    index limit of a single engine call."""
     if n_total % n_devices:
         raise ValueError("n_total must divide evenly over the devices")
     n_local = n_total // n_devices
     offs = np.arange(n_devices, dtype=np.float64) * n_local
-    phases = np.mod(offs * _PHI_FRAC, 1.0).astype(np.float32)
+    phases = np.mod(offs * PHI_FRAC, 1.0).astype(np.float32)
     k_fracs = (offs / n_total).astype(np.float32)
     return n_local, jnp.asarray(phases), jnp.asarray(k_fracs)
+
+
+def _check_spiral_kind(spec, what: str):
+    if spec.kind in ("extended", "square"):
+        raise NotImplementedError(
+            f"sharded {what} for extended/square sources need "
+            "sub-source/row-aligned shard offsets; use the single-device "
+            "chunked path")
+
+
+def scan_moments_sharded(
+    spec,
+    elements,
+    n_total: int,
+    mesh: Mesh,
+    det_centre,
+    det_normal,
+    det_rot,
+    opl_ref: float | None = None,
+    gaussian_edge: float | None = None,
+    centre_distance: float = 0.0,
+    ignore_defects: bool = True,
+):
+    """The 16 detector moments of ops.xla_source.xla_source_moments with the
+    ray axis sharded over a ``('rays',)`` mesh: each device synthesizes its
+    slice of the global Vogel spiral (per-shard (phase, k_frac) offsets),
+    traces it through the fused-source engine and reduces it to one 16-float
+    moment row; only those rows cross the mesh. Poses and defect grids are
+    replicated jit arguments, so every chain of a structurally-uniform scan
+    reuses one executable. Same return dict as ``xla_source_moments``."""
+    from ..ops import xla_source as xs
+    from ..ops.moments import bake_detector, chief_ray_refs
+
+    _check_spiral_kind(spec, "moments")
+    n_local, phases, k_fracs = shard_source_offsets(n_total, mesh.devices.size)
+    if n_local >= 1 << 24:
+        raise ValueError("per-device ray count must stay < 2^24 (float "
+                         "index exactness); use more devices")
+    centre_distance = float(np.float32(centre_distance))
+    opl_ref, inv_dn_chief = chief_ray_refs(spec, elements, det_centre,
+                                           det_normal, opl_ref)
+    det = bake_detector(elements, det_centre, det_normal, det_rot,
+                        opl_ref=opl_ref, inv_dn_chief=inv_dn_chief)
+    els, maps, _final, premasks = xs._source_inputs(spec, elements)
+    wcoef = 0.0 if gaussian_edge is None else float(np.log(gaussian_edge))
+
+    def local(phase, k_frac, geometry):
+        els_l, maps_l, premasks_l = geometry
+        row = xs._moments_run(
+            els_l, maps_l, premasks_l, det, spec.kind,
+            jnp.float32(spec.radius), phase[0], k_frac[0],
+            jnp.float32(wcoef), jnp.float32(centre_distance),
+            jnp.float32(spec.pos_radius), n_local, n_total, spec.n_each,
+            spec.n_sources, ignore_defects)
+        return row[None]
+
+    sharded = jax.shard_map(
+        local, mesh=mesh,
+        in_specs=(P("rays"), P("rays"), P()),
+        out_specs=P("rays", None),
+    )
+    rows = sharded(phases, k_fracs, (els, maps, premasks))
+    return {
+        "moments": np.asarray(rows, np.float64).sum(axis=0),
+        "opl_ref": opl_ref,
+        "inv_dn_chief": inv_dn_chief,
+        "centre_distance": centre_distance,
+    }
 
 
 def source_stats_sharded(
@@ -189,60 +256,21 @@ def source_stats_sharded(
     distances=(0.0,),
     gaussian_edge: float | None = None,
     centre_distance: float = 0.0,
+    ignore_defects: bool = True,
 ):
-    """Fused trace->detector-statistics over every device of a ('rays',)
-    mesh: each device runs the zero-read stats kernel on its slice of the
-    global Vogel spiral and only the (n_programs, 128) partial-sum blocks are
-    gathered — the cross-device traffic for a billion-ray scan is a few kB.
+    """Per-distance detector statistics (ops.xla_source.
+    xla_source_detector_stats semantics) from one sharded moment pass
+    (:func:`scan_moments_sharded`) — the cross-device traffic for a
+    billion-ray scan is a few hundred bytes."""
+    from ..ops.moments import moments_to_distance_sums, sums_to_stats
 
-    Same returns and float32 caveats as
-    ops.pallas_trace.pallas_source_detector_stats."""
-    from ..ops import pallas_trace as pt
-    from ..ops.precision import LIGHT_SPEED_MM_S
-
-    shard_map = jax.shard_map
-
-    if getattr(spec, "kind", None) == "extended":
-        raise NotImplementedError(
-            "sharded stats for extended sources need sub-source-aligned "
-            "shard offsets; use the single-device chunked path")
-    n_dev = mesh.devices.size
-    n_local, phases, k_fracs = shard_source_offsets(n_total, n_dev)
-
-    # identical baking as the single-device wrapper (chief-ray refs included,
-    # with the no-surviving-probe guard); the moment epilogue makes the
-    # kernel J-independent — any number of distances, evaluated in f64 below
-    opl_ref, _delay_offsets, inv_dn_chief = pt.chief_ray_refs(
-        spec, elements, det_centre, det_normal, (0.0,)
-    )
-    centre_distance = float(np.float32(centre_distance))
-    det = pt.bake_detector(elements, det_centre, det_normal, det_rot,
-                           opl_ref=opl_ref, inv_dn_chief=inv_dn_chief)
-    baked, maps, final, premasks = pt._source_maps(spec, elements)
-    tile = pt.MOMENT_BLOCK_ROWS * pt.LANES
-    n_pad = ((n_local + tile - 1) // tile) * tile
-    interpret = jax.default_backend() == "cpu"
-
-    def local(phase, k_frac):
-        out = pt._pallas_source_moments_padded(
-            phase[0], k_frac[0], centre_distance, spec, baked, maps, final,
-            premasks, det, pt.MOMENT_BLOCK_ROWS, interpret, n_local, n_total,
-            n_pad // pt.LANES, gaussian_edge,
-        )
-        # per-device partial reduction: ship one (1, 128) moment row
-        return out.sum(axis=0, keepdims=True)
-
-    sharded = shard_map(
-        local, mesh=mesh,
-        in_specs=(P("rays"), P("rays")),
-        out_specs=P("rays", None),
-        check_vma=False,  # pallas_call out_shapes carry no vma annotation
-    )
-    outs = sharded(phases, k_fracs)
-
-    moments = np.asarray(outs, np.float64).sum(axis=0)[: len(pt.MOMENT_FIELDS)]
-    sums = pt.moments_to_distance_sums(moments, distances, centre_distance)
-    return pt.sums_to_stats(sums, opl_ref, distances)
+    mom = scan_moments_sharded(
+        spec, elements, n_total, mesh, det_centre, det_normal, det_rot,
+        gaussian_edge=gaussian_edge, centre_distance=centre_distance,
+        ignore_defects=ignore_defects)
+    sums = moments_to_distance_sums(mom["moments"], distances,
+                                    mom["centre_distance"])
+    return sums_to_stats(sums, mom["opl_ref"], distances)
 
 
 def source_images_sharded(
@@ -263,24 +291,18 @@ def source_images_sharded(
 ):
     """Giga-ray detector images over every device of a ``('rays',)`` mesh:
     each device synthesizes + traces its slice of the global Vogel spiral
-    through the fused-source Mosaic kernel and bins it locally with the MXU
-    one-hot matmuls (analysis.gigascan) — only the (bins) partial images
-    cross the mesh, a few hundred kB for a billion-ray map.
+    through the fused-source engine and bins it locally
+    (analysis.gigascan) — only the (bins) partial images cross the mesh, a
+    few hundred kB for a billion-ray map.
 
-    ``spec`` is an ops.pallas_trace.BakedSource; ``extent = (lo, hi)`` must
-    be fixed (use a probe image for auto-fitting — per-device auto extents
+    ``spec`` is an ops.source.BakedSource; ``extent = (lo, hi)`` must be
+    fixed (use a probe image for auto-fitting — per-device auto extents
     would disagree). Returns ``(w_img, wd_img)`` as float64 host arrays
     (weight and weight*delay sums; delays relative to ``opl_ref``)."""
-    from ..analysis.gigascan import _images_fused_pallas
-    from ..ops import pallas_trace as pt
+    from ..analysis.gigascan import _images_fused_xla
+    from ..ops import xla_source as xs
 
-    shard_map = jax.shard_map
-
-    if spec.kind in ("extended", "square"):
-        raise NotImplementedError(
-            "sharded images for extended/square sources need "
-            "sub-source/row-aligned shard offsets; use the single-device "
-            "chunked path")
+    _check_spiral_kind(spec, "images")
     n_dev = mesh.devices.size
     if n_total % n_dev:
         raise ValueError("n_total must divide evenly over the devices")
@@ -297,120 +319,35 @@ def source_images_sharded(
     # (device, chunk) global spiral offsets, composed in float64 on the host
     offs = (np.arange(n_dev, dtype=np.float64)[:, None] * n_local
             + np.arange(n_chunks, dtype=np.float64)[None, :] * chunk_local)
-    phases = np.mod(offs * _PHI_FRAC, 1.0).astype(np.float32)
+    phases = np.mod(offs * PHI_FRAC, 1.0).astype(np.float32)
     k_fracs = (offs / n_total).astype(np.float32)
 
-    statics = pt._source_maps(spec, elements)
+    geometry = xs._source_inputs(spec, elements)
     logedge = None if gaussian_edge is None else float(np.log(gaussian_edge))
     centre_j = jnp.asarray(centre, jnp.float32)
     normal_j = jnp.asarray(normal, jnp.float32)
     rot_j = jnp.asarray(rot, jnp.float32)
     lo_j = jnp.asarray(extent[0], jnp.float32)
     hi_j = jnp.asarray(extent[1], jnp.float32)
-    interpret = jax.default_backend() == "cpu"
 
-    def local(ph_rows, kf_rows):
-        wg, wdg = _images_fused_pallas(
-            ph_rows[0], kf_rows[0], centre_j, normal_j, rot_j, lo_j, hi_j,
-            jnp.float32(opl_ref), baked=spec, statics=statics, bins=bins,
+    def local(ph_rows, kf_rows, geometry_l):
+        wg, wdg = _images_fused_xla(
+            ph_rows[0], kf_rows[0], *geometry_l, centre_j, normal_j, rot_j,
+            lo_j, hi_j, jnp.float32(opl_ref), baked=spec, bins=bins,
             chunk=chunk_local, n_total=n_total, group=8,
             n_groups=-(-n_chunks // 8), logedge=logedge,
-            ignore_defects=ignore_defects, wavelength=float(wavelength),
-            interpret=interpret)
+            ignore_defects=ignore_defects, wavelength=float(wavelength))
         # per-device partial reduction: ship one image pair
         return wg.sum(axis=0)[None], wdg.sum(axis=0)[None]
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         local, mesh=mesh,
-        in_specs=(P("rays", None), P("rays", None)),
+        in_specs=(P("rays", None), P("rays", None), P()),
         out_specs=(P("rays", None, None), P("rays", None, None)),
-        check_vma=False,  # pallas_call out_shapes carry no vma annotation
+        # the binning scan's accumulator starts replicated (zeros) and turns
+        # device-varying after the first block; its type check would refuse
+        check_vma=False,
     )
-    wgs, wdgs = sharded(jnp.asarray(phases), jnp.asarray(k_fracs))
+    wgs, wdgs = sharded(jnp.asarray(phases), jnp.asarray(k_fracs), geometry)
     return (np.asarray(wgs, np.float64).sum(axis=0),
             np.asarray(wdgs, np.float64).sum(axis=0))
-
-
-def scan_moments_sharded(
-    spec,
-    svec,
-    n_total: int,
-    mesh: Mesh,
-    opl_ref: float,
-    inv_dn_chief: float,
-    centre_distance: float = 0.0,
-    radius: float = 0.0,
-    gaussian_edge: float | None = None,
-    pos_radius: float = 0.0,
-):
-    """The runtime-scalar-pose scan kernel (ops/pallas_scan.py) with the ray
-    axis sharded over a ``('rays',)`` mesh — the multi-chip form of
-    :func:`attosecondraytracing_tpu.ops.pallas_scan.scan_moments`, and the
-    natural multi-chip parameter-scan engine: every chain of a
-    structurally-uniform scan runs THIS one compiled kernel with its own
-    pose-scalar vector ``svec`` (replicated — a few hundred bytes), each
-    device synthesizes its slice of the global Vogel spiral in-kernel via
-    the per-shard (phase, k_frac) offsets, and only the (1, 128) partial
-    moment rows travel across the mesh.
-
-    Same contract as ``scan_moments``: returns the 16 distance-independent
-    detector moments (float64, ops.pallas_trace.MOMENT_FIELDS order).
-    """
-    from ..ops import pallas_scan as psn
-    from ..ops import pallas_trace as pt
-    from ..ops.warmup import note_dispatch
-
-    shard_map = jax.shard_map
-
-    if spec.source_kind == "extended":
-        raise NotImplementedError(
-            "sharded scan moments for extended sources need "
-            "sub-source-aligned shard offsets; use the single-device "
-            "chunked path")
-    note_dispatch()
-    n_dev = mesh.devices.size
-    if n_total % n_dev:
-        raise ValueError("n_total must divide evenly over the devices")
-    # per-shard spiral offsets: the golden-angle phase advances by the ray
-    # offset, but the radius-law fraction divides by the SPEC's global
-    # spiral size (spec.n_total — which may exceed the traced count, e.g.
-    # truncated scans), exactly as ops.pallas_trace.source_chunks does
-    n_local = n_total // n_dev
-    offs = np.arange(n_dev, dtype=np.float64) * n_local
-    phases = np.mod(offs * _PHI_FRAC, 1.0).astype(np.float32)
-    k_fracs = (offs / spec.n_total).astype(np.float32)
-    if n_local >= 1 << 24:
-        raise ValueError("per-device ray count must stay < 2^24 (float "
-                         "index exactness); use more devices or chunk")
-    centre_distance = float(np.float32(centre_distance))
-    wcoef = 0.0 if gaussian_edge is None else float(np.log(gaussian_edge))
-    aux_all = np.zeros((n_dev, psn.N_AUX), np.float32)
-    aux_all[:, psn.AUX_OPL_REF] = opl_ref
-    aux_all[:, psn.AUX_INV_DN] = inv_dn_chief
-    aux_all[:, psn.AUX_CENTRE_D] = centre_distance
-    aux_all[:, psn.AUX_RADIUS] = radius
-    aux_all[:, psn.AUX_WCOEF] = wcoef
-    aux_all[:, psn.AUX_PHASE] = np.asarray(phases)
-    aux_all[:, psn.AUX_KFRAC] = np.asarray(k_fracs)
-    aux_all[:, psn.AUX_POS_RADIUS] = pos_radius
-
-    tile = spec.block_rows * pt.LANES
-    n_pad = ((n_local + tile - 1) // tile) * tile
-    interpret = jax.default_backend() == "cpu"
-    svec = jnp.asarray(svec, jnp.float32)
-
-    def local(svec_rep, aux_rows):
-        out = psn._pallas_scan_moments_padded(
-            svec_rep, aux_rows[0], spec, interpret, n_local,
-            n_pad // pt.LANES)
-        # per-device partial reduction: ship one (1, 128) moment row
-        return out.sum(axis=0, keepdims=True)
-
-    sharded = shard_map(
-        local, mesh=mesh,
-        in_specs=(P(), P("rays", None)),
-        out_specs=P("rays", None),
-        check_vma=False,  # pallas_call out_shapes carry no vma annotation
-    )
-    outs = sharded(svec, jnp.asarray(aux_all))
-    return np.asarray(outs, np.float64).sum(axis=0)[: len(pt.MOMENT_FIELDS)]

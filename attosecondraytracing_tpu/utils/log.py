@@ -11,7 +11,7 @@ _BANNER = r"""
    /_\| |_| |_ ___ ___ ___ __ ___ _ _  __| |  | _ \__ _ _  _  |_   _| _ __ _ __(_)_ _  __ _
   / _ \  _|  _/ _ (_-</ -_) _/ _ \ ' \/ _` |  |   / _` | || |   | || '_/ _` / _| | ' \/ _` |
  /_/ \_\__|\__\___/__/\___\__\___/_||_\__,_|  |_|_\__,_|\_, |   |_||_| \__,_\__|_|_||_\__, |
-                                                        |__/   TPU-native            |___/
+                                                        |__/   JAX / XLA             |___/
 """
 
 

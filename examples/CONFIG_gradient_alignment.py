@@ -1,5 +1,5 @@
 """Gradient-descent re-alignment of a misaligned grazing-incidence chain —
-the TPU-native replacement for scan-list alignment hunting (BASELINE.md's
+the gradient-based replacement for scan-list alignment hunting (BASELINE.md's
 'masked grazing-incidence chain with alignment-gradient descent' scenario).
 
 Run:  python -m attosecondraytracing_tpu.main examples/CONFIG_gradient_alignment.py
@@ -36,12 +36,10 @@ detector.autoplace(OpticalChain.get_output_rays()[-1], 2*Focal)
 OpticalChain.rotate_OE(1, "roll", 0.05)
 OpticalChain.rotate_OE(1, "pitch", 0.02)
 
-# gradient descent on the real optical figure of merit (spot variance).
-# engine="auto": on a TPU backend with a production-size bundle this runs
-# through the fused Pallas forward-mode gradient engine (ops/pallas_grad.py,
-# O(1) gradient memory at any ray count); otherwise reverse-mode XLA.
+# gradient descent on the real optical figure of merit (spot variance),
+# reverse mode through the batched trace
 params, history = al.gradient_align(OpticalChain, detector, iters=150, lr=2e-5,
-                                    verbose=True, engine="auto")
+                                    verbose=True)
 print(f"alignment loss: {history[0]:.3e} -> {history[-1]:.3e}")
 
 DetectorOptions = {

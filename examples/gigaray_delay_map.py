@@ -1,15 +1,15 @@
 """Giga-ray spot diagram + femtosecond delay map, rendered on device.
 
-Showcase of the TPU-native capability the reference cannot reach: the
-reference's SpotDiagram/DelayGraph (ART/ModuleAnalysisAndPlots.py:133-440)
-fetch every traced ray to the host and scatter-plot them — practical to
-~1e4 rays. Here the source is synthesized *inside* the fused Pallas kernel
-chunk by chunk and binned on device (analysis/gigascan.py), so the ray count
-is limited by patience, not memory: nothing per-ray ever reaches the host.
+Showcase of what the reference cannot reach: the reference's
+SpotDiagram/DelayGraph (ART/ModuleAnalysisAndPlots.py:133-440) fetch every
+traced ray to the host and scatter-plot them — practical to ~1e4 rays. Here
+the source is synthesized *inside* the fused XLA engine chunk by chunk and
+binned on device (analysis/gigascan.py), so the ray count is limited by
+patience, not memory: nothing per-ray ever reaches the host.
 
-    python examples/gigaray_delay_map.py              # 1e8 rays (TPU)
+    python examples/gigaray_delay_map.py              # 1e8 rays (GPU)
     python examples/gigaray_delay_map.py 1e9          # a billion rays
-    ART_TPU_PLATFORM=cpu python examples/gigaray_delay_map.py 2e5   # smoke
+    JAX_PLATFORMS=cpu python examples/gigaray_delay_map.py 2e5   # smoke
 
 Writes gigaray_delay_map.png next to the repo root: intensity image (left),
 mean-delay map in fs (right), through the flagship 2-toroidal grazing-
@@ -24,9 +24,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import matplotlib
-
-matplotlib.use("Agg")
 import numpy as np
 
 from attosecondraytracing_tpu.analysis.gigascan import fused_source_images
@@ -37,7 +34,11 @@ from attosecondraytracing_tpu.models.detector import Detector
 from attosecondraytracing_tpu.models.placement import OEPlacement
 
 
-def main(n_total: int) -> None:
+def build_chain():
+    """The flagship 2-toroidal grazing-incidence chain with a sub-mrad roll
+    misalignment of the refocusing mirror (so the delay map shows the
+    characteristic spatio-temporal tilt), its detector at the refocus, and
+    float32 device elements. Returns (chain, detector, elements)."""
     focal, incidence = 500.0, 80.0
     R, r = mmirror.ReturnOptimalToroidalRadii(focal, incidence)
     toroidal = mmirror.MirrorToroidal(R, r, msupp.SupportRectangle(150, 32))
@@ -50,17 +51,23 @@ def main(n_total: int) -> None:
         [0.0, incidence, -incidence],
         Description="flagship: mask + 2 toroidals f-d-f",
     )
-    # sub-mrad roll misalignment: the refocus acquires the spatio-temporal
-    # couplings this framework exists to quantify
     chain.rotate_OE(2, "roll", 0.05)
 
     det = Detector(chain.optical_elements[-1].position)
     det.autoplace(chain.trace_final(), focal)
 
     elements = [e.to_device(dtype=np.float32) for e in chain.optical_elements]
+    return chain, det, elements
+
+
+def main(n_total: int) -> None:
+    chain, det, elements = build_chain()
     res = fused_source_images(chain.source_spec, elements, det,
                               n_total=n_total, bins=(512, 512))
 
+    import matplotlib
+
+    matplotlib.use("Agg")
     from attosecondraytracing_tpu.analysis.plots import GigaRayImages
 
     fig = GigaRayImages(res, title=chain.description)

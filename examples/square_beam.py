@@ -1,8 +1,8 @@
 """Square plane-wave beam onto an off-axis parabola — the 'square' fused
 source kind end to end (the reference's PlaneWaveSquare intent,
-ART/ModuleSource.py:173-207; broken there, working + in-kernel here).
+ART/ModuleSource.py:173-207; broken there, working + synthesized in-jit here).
 
-Run: python examples/square_beam.py [n_rays]   (ART_TPU_PLATFORM=cpu for CPU)
+Run: python examples/square_beam.py [n_rays]   (JAX_PLATFORMS=cpu for CPU)
 """
 
 import os

@@ -1,11 +1,11 @@
 """Generate markdown API documentation for attosecondraytracing_tpu.
 
 Stdlib-only replacement for the reference's pdoc-generated API site
-(/root/reference/docs/src/static/api/): walks the package with ``inspect``,
+(docs/src/static/api/ in the reference repository): walks the package with ``inspect``,
 emits one markdown file per module into docs/api/ plus an index. Run from the
 repo root:
 
-    ART_TPU_PLATFORM=cpu python scripts/gen_api_docs.py
+    JAX_PLATFORMS=cpu python scripts/gen_api_docs.py
 
 Re-run after changing public signatures/docstrings; the output is committed
 so the docs are browsable without running anything.

@@ -2,7 +2,7 @@
 site under docs/html/.
 
 Stdlib-only equivalent of the reference's Hugo + pdoc HTML docs site
-(/root/reference/docs/: hugo-book layout + pdoc API HTML, built by
+(docs/ in the reference repository: hugo-book layout + pdoc API HTML, built by
 .github/workflows/hugo.yaml). This repo keeps markdown as the source of
 truth (docs/, docs/api/ from scripts/gen_api_docs.py); this script adds the
 browsable-HTML deliverable without any external toolchain:

@@ -1,6 +1,6 @@
-"""In-kernel ExtendedSource (VERDICT r3 #9): the nested-spiral index decode
-(ops/pallas_trace.synth_source_c) must reproduce the host ExtendedSource
-bundle and unlock every fused engine for the last source kind."""
+"""In-jit ExtendedSource (VERDICT r3 #9): the nested-spiral index decode
+(ops/source.synth_source_c) must reproduce the host ExtendedSource bundle
+and unlock every fused engine for the last source kind."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +10,9 @@ from attosecondraytracing_tpu.models import mirrors as mmirror
 from attosecondraytracing_tpu.models import supports as msupp
 from attosecondraytracing_tpu.models.detector import Detector
 from attosecondraytracing_tpu.models.placement import OEPlacement
-from attosecondraytracing_tpu.ops import pallas_trace as pt
+from attosecondraytracing_tpu.ops import moments as pm
+from attosecondraytracing_tpu.ops import source as pt
+from attosecondraytracing_tpu.ops import xla_source as xs
 from attosecondraytracing_tpu.ops.trace import trace_jit
 
 DIAMETER = 0.2   # mm -> 50 sub-sources
@@ -65,12 +67,12 @@ def test_source_bundle_matches_host_extended():
 
 
 def test_pallas_trace_source_extended_matches_xla(monkeypatch):
-    """engine='pallas' on an extended-source chain runs the in-kernel
-    synthesis and agrees with the XLA trace of the host bundle."""
+    """engine='xla-source' on an extended-source chain runs the in-jit
+    synthesis and agrees with the streamed trace of the host bundle."""
     chain = _extended_chain()
     out_xla = chain.trace_final(engine="xla")
-    out_pl = chain.trace_final(engine="pallas")
-    assert chain.last_trace_engine == "pallas-source"
+    out_pl = chain.trace_final(engine="xla-source")
+    assert chain.last_trace_engine == "xla-source"
     a_x, a_p = np.asarray(out_xla.alive), np.asarray(out_pl.alive)
     assert abs(a_x.sum() - a_p.sum()) <= 0.01 * a_x.sum() + 5
     px = np.asarray(out_xla.p)[a_x]
@@ -93,7 +95,7 @@ def test_extended_stats_kernel_matches_detector_path():
     det = Detector(np.zeros(3))
     det.autoplace(out, 195.0)
     edge = float(1 / np.e**2)
-    res = pt.pallas_source_detector_stats(
+    res = xs.xla_source_detector_stats(
         baked, elements, n, det.centre, det.normal, det._plane_rotation(),
         distances=(-4.0, 0.0, 4.0), gaussian_edge=edge)
     # reference weights: the cone-angle law per sub-source ray
@@ -129,10 +131,10 @@ def test_extended_chunking_aligns_to_sub_sources():
     det.autoplace(out, 195.0)
     kw = dict(det_centre=det.centre, det_normal=det.normal,
               det_rot=det._plane_rotation())
-    full = pt.pallas_source_detector_moments(baked, elements, n, **kw)
-    parts = np.zeros(len(pt.MOMENT_FIELDS))
+    full = xs.xla_source_moments(baked, elements, n, **kw)
+    parts = np.zeros(len(pm.MOMENT_FIELDS))
     for n_local, phase, k_frac in chunks:
-        m = pt.pallas_source_detector_moments(
+        m = xs.xla_source_moments(
             baked, elements, n_local, phase=phase, k_frac=k_frac,
             n_total=n, opl_ref=full["opl_ref"], **kw)
         parts += m["moments"]

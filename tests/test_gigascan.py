@@ -52,60 +52,64 @@ def test_chunked_images_match_single_pass(setup):
         np.median(diffs), diffs.max())
 
 
-def test_xla_source_engine_matches_pallas_engine(setup):
-    """engine='xla-source' (one XLA program: in-jit synthesis + chained
-    trace + scatter-add binning, no intermediate-bundle HBM round trip) must
-    reproduce the pallas-engine image (VERDICT r4 #8)."""
+def test_images_match_scatter_histogram(setup):
+    """The fused image (full-f32 one-hot matmul binning) equals a plain
+    ``.at[].add`` scatter histogram of the same traced rays, and agrees with
+    the streamed trace's scatter histogram up to single-bin hops of rays on
+    pixel boundaries (chained vs lab frames round differently)."""
+    import jax.numpy as jnp
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    from attosecondraytracing_tpu.analysis import stats
+    from attosecondraytracing_tpu.analysis.histogram import _bin_indices
+    from attosecondraytracing_tpu.ops.source import source_bundle
+    from attosecondraytracing_tpu.ops.trace import trace
+    from attosecondraytracing_tpu.ops.xla_source import xla_trace_source
+
     chain, elements, det = setup
     spec = chain.source_spec
-    kw = dict(bins=(64, 64), n_total=16384)
-    res_p = fused_source_images(spec, elements, det, **kw)
-    # chunk=4096 forces the multi-chunk fused dispatch (_images_fused_xla),
-    # which the single-chunk default would leave untested
-    res_x = fused_source_images(spec, elements, det, engine="xla-source",
-                                extent=res_p["extent"], chunk=4096, **kw)
-    assert res_x["sum_w"] == pytest.approx(res_p["sum_w"], rel=1e-5)
-    # same global spiral, but the two engines compile the same math through
-    # different pipelines (Mosaic vs XLA; no freeze selects pinning the
-    # FMA/reassociation order since round 5), so impact points carry ~1e-3 mm
-    # of amplified f32 rounding noise at this grazing geometry — rays within
-    # that distance of a ~8 um pixel boundary legitimately hop one bin.
-    # Compare physically: per-pixel weights within a few rays, and the image
-    # MOMENTS (centroid + spread, the quantities analyses consume) tightly.
-    np.testing.assert_allclose(res_x["image"], res_p["image"], atol=4.0)
-    assert np.abs(res_x["image"] - res_p["image"]).sum() < 0.2 * res_p["sum_w"]
+    n, bins = 16384, (64, 64)
+    res = fused_source_images(spec, elements, det, n_total=n, bins=bins)
+    # float32 geometry, as inside the fused binning
+    f32 = lambda v: jnp.asarray(v, jnp.float32)
+    lo, hi = (f32(v) for v in res["extent"])
+    w_src = np.exp(np.log(spec.gaussian_edge) * np.arange(n) / n)
 
-    def img_moments(img):
-        gx, gy = np.meshgrid(np.arange(img.shape[0]), np.arange(img.shape[1]),
-                             indexing="ij")
-        w = img.sum()
-        mx, my = (img * gx).sum() / w, (img * gy).sum() / w
-        vx = (img * (gx - mx) ** 2).sum() / w
-        vy = (img * (gy - my) ** 2).sum() / w
-        return mx, my, np.sqrt(vx), np.sqrt(vy)
+    def scatter(out):
+        w = w_src * np.asarray(out.alive)
+        xy = stats.detector_points_2d(out, f32(det.centre), f32(det.normal),
+                                      f32(det._plane_rotation()))
+        ix, iy, inside = _bin_indices(xy, lo, hi, bins)
+        return np.asarray(jnp.zeros(bins).at[ix, iy].add(jnp.where(inside, w, 0.0)))
 
-    mp, mx_ = img_moments(res_p["image"]), img_moments(res_x["image"])
-    np.testing.assert_allclose(mx_, mp, atol=0.05)  # bins (~0.4 um)
-    m_p, m_x = res_p["mean_delay"], res_x["mean_delay"]
-    both = np.isfinite(m_p) & np.isfinite(m_x) & (res_p["weight_image"] > 5)
-    assert both.sum() > 50
-    diffs = np.abs(m_x[both] - m_p[both])
-    # per-pixel mean delays inherit the same cross-compiler rounding noise
-    # through bin membership (a hopped ray drags its delay along): ~0.05 fs
-    # median at these pixel occupancies
-    assert np.median(diffs) < 0.1 and diffs.max() < 0.5, (
-        np.median(diffs), diffs.max())
+    fused = scatter(xla_trace_source(spec.baked(), elements, n,
+                                     wavelength=spec.wavelength))
+    # same rays, two binnings: eager vs jitted float32 arithmetic may move a
+    # ray sitting exactly on a pixel edge (a hop of at most one ray weight)
+    np.testing.assert_allclose(res["image"], fused, atol=1.0)
+    assert np.abs(res["image"] - fused).sum() < 1e-3 * res["sum_w"]
+
+    streamed = scatter(trace(source_bundle(spec.baked(), n,
+                                           wavelength=spec.wavelength),
+                             elements, keep_history=False))
+    assert res["sum_w"] == pytest.approx(streamed.sum(), rel=1e-4)
+
+    def blur3(a):
+        return sliding_window_view(np.pad(a, 1), (3, 3)).sum(axis=(2, 3))
+
+    assert np.abs(blur3(res["image"]) - blur3(streamed)).sum() < (
+        0.05 * 9 * res["sum_w"])
 
 
 def test_sharded_images_match_single_device(setup):
     """source_images_sharded over the 8-virtual-device mesh == the
     single-device gigascan images (same global spiral via per-shard
-    (phase, k_frac) offsets; per-device MXU-binned partial images summed in
-    f64 on the host)."""
+    (phase, k_frac) offsets; per-device binned partial images summed in f64
+    on the host)."""
     import jax
     import numpy as np
 
-    from attosecondraytracing_tpu.ops import pallas_trace as pt
+    from attosecondraytracing_tpu.ops.moments import chief_ray_refs
     from attosecondraytracing_tpu.parallel.mesh import source_images_sharded
 
     chain, elements, det = setup
@@ -113,8 +117,7 @@ def test_sharded_images_match_single_device(setup):
     baked = spec.baked()
     n = 16384
     res_1 = fused_source_images(spec, elements, det, n_total=n, bins=(64, 64))
-    opl_ref, _o, _i = pt.chief_ray_refs(baked, elements, det.centre,
-                                        det.normal, (0.0,))
+    opl_ref, _ = chief_ray_refs(baked, elements, det.centre, det.normal)
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:8]), ("rays",))
     w8, wd8 = source_images_sharded(
         baked, elements, n, mesh, det.centre, det.normal,
@@ -131,10 +134,10 @@ def test_sharded_images_match_single_device(setup):
 
 def test_images_match_bundle_histogram_path(setup):
     """The gigascan image equals Detector.get_Image on the equivalent
-    explicitly-built bundle (same kernel spiral, same weights)."""
+    explicitly-built bundle (same in-jit spiral, same weights)."""
     import jax.numpy as jnp
 
-    from attosecondraytracing_tpu.ops import pallas_trace as pt
+    from attosecondraytracing_tpu.ops.source import source_bundle
     from attosecondraytracing_tpu.ops.trace import trace
 
     chain, elements, det = setup
@@ -142,13 +145,13 @@ def test_images_match_bundle_histogram_path(setup):
     n = 16384
     res = fused_source_images(spec, elements, det, n_total=n, bins=(64, 64))
 
-    src = pt.source_bundle(spec.baked(), n, wavelength=spec.wavelength)
+    src = source_bundle(spec.baked(), n, wavelength=spec.wavelength)
     kf = jnp.arange(n, dtype=jnp.float32)
     weights = jnp.exp(np.log(spec.gaussian_edge) * kf / n)
     out = trace(src, elements, keep_history=False)
     out = out._replace(intensity=weights)
     img, (lo, hi) = det.get_Image(out, bins=(64, 64), extent=res["extent"])
-    # chained-frame kernel vs lab-frame XLA trace: impact points agree only to
+    # chained-frame engine vs lab-frame streamed trace: impact points agree only to
     # ~1e-4 mm (f32 reassociation) while pixels here are ~6 um, so a few
     # percent of rays legitimately hop one bin. Compare physically: image
     # moments and a 3x3-blurred L1 (absorbs single-bin hops).

@@ -111,187 +111,57 @@ def test_grad_wrt_surface_parameters():
     np.testing.assert_allclose(float(g[0]), fd, rtol=1e-3)
 
 
-def test_fused_pallas_grads_match_xla_grads():
-    """The forward-mode Pallas gradient engine (ops/pallas_grad.py) must
-    reproduce reverse-mode XLA gradients of the focus loss on the flagship
-    chain (VERDICT r2 #2). Both paths are evaluated on the *same* source
-    (the kernel's own float32 spiral + closed-form Gaussian weights) so the
-    only differences are f32 reassociation and JVP-vs-VJP rounding."""
-    import pytest
-    import jax
-    import jax.numpy as jnp
-
-    from attosecondraytracing_tpu.analysis import alignment as al
-    from attosecondraytracing_tpu.analysis import stats
+def _masked_oap(n_rays):
+    """Aperture mask + 90 deg off-axis parabola (a cheap-to-differentiate
+    stand-in for the grazing toroid chains, whose reverse-mode compile is
+    slow on the CPU test backend)."""
     from attosecondraytracing_tpu.models import masks as mmask
-    from attosecondraytracing_tpu.models import mirrors as mmirror
-    from attosecondraytracing_tpu.models import supports as msupp
-    from attosecondraytracing_tpu.models.detector import Detector
-    from attosecondraytracing_tpu.models.placement import OEPlacement
-    from attosecondraytracing_tpu.ops import pallas_grad as pg
-    from attosecondraytracing_tpu.ops import pallas_trace as pt
-    from attosecondraytracing_tpu.ops.trace import trace
 
-    focal, inc = 500.0, 80.0
-    R, r = mmirror.ReturnOptimalToroidalRadii(focal, inc)
-    tor = mmirror.MirrorToroidal(R, r, msupp.SupportRectangle(150, 32))
-    mask = mmask.Mask(msupp.SupportRoundHole(20, 7, 0, 0))
-    props = {"Divergence": 25e-3, "SourceSize": 0, "Wavelength": 80e-6,
-             "DeltaFT": 0.5, "NumberRays": 8192}
-    chain = OEPlacement(props, [mask, tor, tor], [400, 100, 500],
-                        [0, inc, -inc], [0, 0, 0])
-    elements = [e.to_device(dtype=jnp.float32) for e in chain.optical_elements]
-    n = 8192
-    edge = float(np.exp(-2.0))
-
-    src_info = chain.source_spec
-    assert src_info is not None
-    baked_src = src_info.baked()
-
+    parabola = mmirror.MirrorParabolic(100, 90, msupp.SupportRound(12))
+    mask = mmask.Mask(msupp.SupportRoundHole(15, 3, 0, 0))
+    props = {"Divergence": 0, "SourceSize": 20, "Wavelength": 50e-6,
+             "DeltaFT": 1, "NumberRays": n_rays}
+    chain = OEPlacement(props, [mask, parabola], [100, 100], [0.0, 0.0])
     det = Detector(chain.optical_elements[-1].position)
-    probe = pt.source_bundle(baked_src, 256, wavelength=80e-6)
-    det.autoplace(trace(probe, elements, keep_history=False), focal - 5.0)
-    det_rot = det._plane_rotation()
-
-    spec = pg.make_loss_spec(
-        src_info._replace(gaussian_edge=edge, n_rays=n), elements,
-        det.centre, det.normal, duration_weight=0.0, survival_weight=1.0,
-    )
-
-    # start slightly misaligned so gradients are nonzero
-    params = al.zero_params(len(elements), dtype=jnp.float32)
-    params = params._replace(
-        angles=params.angles.at[1, 0].set(2e-4).at[2, 2].set(-1e-4),
-        shifts=params.shifts.at[1, 0].set(0.05),
-    )
-
-    loss_pl, grads_pl = pg.fused_focus_value_and_grad(
-        params, spec, elements, np.asarray(baked_src.rot),
-        np.asarray(src_info.origin), det.centre, det.normal, det_rot,
-    )
-
-    # XLA reference: identical physics — kernel-form source + rr-law weights
-    src = pt.source_bundle(baked_src, n, wavelength=80e-6)
-    kf = jnp.arange(n, dtype=jnp.float32)
-    weights = jnp.exp(np.log(edge) * kf / n)
-    src = src._replace(intensity=weights)
-
-    def xla_loss(p):
-        return al.focus_loss(
-            p, src, elements, jnp.asarray(det.centre, jnp.float32),
-            jnp.asarray(det.normal, jnp.float32), jnp.asarray(det_rot, jnp.float32),
-            duration_weight=0.0, survival_weight=1.0,
-        )
-
-    loss_x, grads_x = jax.value_and_grad(xla_loss)(params)
-
-    assert float(loss_pl) == pytest.approx(float(loss_x), rel=2e-3)
-    for g_pl, g_x in [(grads_pl.angles, grads_x.angles), (grads_pl.shifts, grads_x.shifts)]:
-        g_pl, g_x = np.asarray(g_pl), np.asarray(g_x)
-        scale = max(np.abs(g_x).max(), 1e-12)
-        np.testing.assert_allclose(g_pl, g_x, atol=2e-2 * scale, rtol=2e-2)
+    det.autoplace(chain.trace_final(engine="xla"), 100.0)
+    return chain, det
 
 
 def test_gradient_align_fused_descends():
-    """gradient_align(engine='pallas') must descend the loss on a misaligned
-    flagship chain through the fused engine (interpret mode on CPU)."""
-    import jax.numpy as jnp
-
-    from attosecondraytracing_tpu.analysis import alignment as al
-    from attosecondraytracing_tpu.models import mirrors as mmirror
-    from attosecondraytracing_tpu.models import supports as msupp
-    from attosecondraytracing_tpu.models.detector import Detector
-    from attosecondraytracing_tpu.models.placement import OEPlacement
-
-    focal, inc = 500.0, 80.0
-    R, r = mmirror.ReturnOptimalToroidalRadii(focal, inc)
-    tor = mmirror.MirrorToroidal(R, r, msupp.SupportRectangle(150, 32))
-    props = {"Divergence": 25e-3, "SourceSize": 0, "Wavelength": 80e-6,
-             "DeltaFT": 0.5, "NumberRays": 2048}
-    chain = OEPlacement(props, [tor, tor], [500, 600], [inc, -inc], [0, 0])
-    chain.rotate_OE(0, "roll", 0.3)  # misalign
-
-    det = Detector(chain.optical_elements[-1].position)
-    det.autoplace(chain.trace_final(engine="xla"), focal)
+    """gradient_align must descend the loss on a misaligned masked chain
+    (reverse mode through the streamed trace, source and elements passed
+    as jit arguments)."""
+    chain, det = _masked_oap(2048)
+    chain.rotate_OE(1, "roll", 0.1)  # misalign
     params, history = al.gradient_align(
-        chain, det, iters=12, lr=2e-4, engine="pallas", survival_weight=0.1,
+        chain, det, iters=12, lr=2e-3, survival_weight=0.0,
     )
     assert history[-1] < 0.9 * history[0], history
 
 
-def _grad_setup(n=8192):
-    import jax.numpy as jnp
-
-    from attosecondraytracing_tpu.analysis import alignment as al
-    from attosecondraytracing_tpu.models import masks as mmask
-    from attosecondraytracing_tpu.models import mirrors as mmirror
-    from attosecondraytracing_tpu.models import supports as msupp
-    from attosecondraytracing_tpu.models.detector import Detector
-    from attosecondraytracing_tpu.models.placement import OEPlacement
-    from attosecondraytracing_tpu.ops import pallas_grad as pg
-    from attosecondraytracing_tpu.ops import pallas_trace as pt
-    from attosecondraytracing_tpu.ops.trace import trace_jit
-
-    focal, inc = 500.0, 80.0
-    R, r = mmirror.ReturnOptimalToroidalRadii(focal, inc)
-    tor = mmirror.MirrorToroidal(R, r, msupp.SupportRectangle(150, 32))
-    mask = mmask.Mask(msupp.SupportRoundHole(20, 7, 0, 0))
-    props = {"Divergence": 25e-3, "SourceSize": 0, "Wavelength": 80e-6,
-             "DeltaFT": 0.5, "NumberRays": n}
-    chain = OEPlacement(props, [mask, tor, tor], [400, 100, 500],
-                        [0, inc, -inc], [0, 0, 0])
-    elements = [e.to_device(dtype=jnp.float32) for e in chain.optical_elements]
-    src_info = chain.source_spec
-    baked_src = src_info.baked()
-    det = Detector(chain.optical_elements[-1].position)
-    probe = pt.source_bundle(baked_src, 256, wavelength=80e-6)
-    det.autoplace(trace_jit(probe, elements, keep_history=False), focal - 5.0)
-    spec = pg.make_loss_spec(
-        src_info._replace(gaussian_edge=float(np.exp(-2.0)), n_rays=n),
-        elements, det.centre, det.normal,
-        duration_weight=0.0, survival_weight=1.0)
-    params = al.zero_params(len(elements), dtype=jnp.float32)
-    params = params._replace(
-        angles=params.angles.at[1, 0].set(2e-4).at[2, 2].set(-1e-4),
-        shifts=params.shifts.at[1, 0].set(0.05))
-    args = (params, spec, elements, np.asarray(baked_src.rot),
-            np.asarray(src_info.origin), det.centre, det.normal,
-            det._plane_rotation())
-    return args
-
-
-def test_fused_grad_chunked_matches_single_pass():
-    """Chunking the ray range via the (phase, k_frac) spiral law (the giga-ray
-    path, VERDICT r3 #2) reproduces the single-pass gradient: the chunks
-    cover the SAME global spiral, so only f32 summation order differs."""
-    import jax
-
-    from attosecondraytracing_tpu.ops import pallas_grad as pg
-
-    args = _grad_setup(8192)
-    loss_1, grads_1 = pg.fused_focus_value_and_grad(*args)
-    loss_c, grads_c = pg.fused_focus_value_and_grad(*args, chunk_size=2048)
-    np.testing.assert_allclose(float(loss_c), float(loss_1), rtol=1e-4)
-    for g_c, g_1 in zip(jax.tree.leaves(grads_c), jax.tree.leaves(grads_1)):
-        g_c, g_1 = np.asarray(g_c), np.asarray(g_1)
-        scale = max(np.abs(g_1).max(), 1e-12)
-        np.testing.assert_allclose(g_c, g_1, atol=2e-3 * scale, rtol=2e-3)
-
-
 def test_fused_grad_sharded_matches_single_device():
-    """shard_map'd fused gradient over the 8-virtual-device mesh == the
-    single-device gradient (per-device spiral shards, partial-sum vectors
-    combined across the mesh)."""
-    import jax
+    """The alignment gradient with the ray axis sharded over the
+    8-virtual-device mesh == the single-device gradient (XLA inserts the
+    cross-device reduction of the loss and its cotangents)."""
+    from attosecondraytracing_tpu.parallel import mesh as pmesh
 
-    from attosecondraytracing_tpu.ops import pallas_grad as pg
+    chain, det = _masked_oap(8192)
+    elements = chain.device_elements()
+    geom = tuple(jnp.asarray(v) for v in
+                 (det.centre, det.normal, det._plane_rotation()))
+    params = al.zero_params(len(elements), dtype=jnp.float64)
+    params = params._replace(
+        angles=params.angles.at[1, 1].set(2e-4).at[1, 2].set(-1e-4),
+        shifts=params.shifts.at[1, 0].set(0.05))
+    vg = jax.jit(jax.value_and_grad(al.focus_loss))
 
-    args = _grad_setup(8192)
-    loss_1, grads_1 = pg.fused_focus_value_and_grad(*args)
-    mesh = jax.sharding.Mesh(np.array(jax.devices()[:8]), ("rays",))
-    loss_s, grads_s = pg.fused_focus_value_and_grad(*args, mesh=mesh)
-    np.testing.assert_allclose(float(loss_s), float(loss_1), rtol=1e-4)
+    loss_1, grads_1 = vg(params, chain.source_rays, elements, *geom)
+    mesh = pmesh.make_mesh()
+    src = pmesh.shard_bundle(chain.source_rays, mesh)  # 8192 divides: no pad
+    loss_s, grads_s = vg(params, src, elements, *geom)
+    assert float(loss_1) > 0
+    np.testing.assert_allclose(float(loss_s), float(loss_1), rtol=1e-9)
     for g_s, g_1 in zip(jax.tree.leaves(grads_s), jax.tree.leaves(grads_1)):
         g_s, g_1 = np.asarray(g_s), np.asarray(g_1)
         scale = max(np.abs(g_1).max(), 1e-12)
-        np.testing.assert_allclose(g_s, g_1, atol=2e-3 * scale, rtol=2e-3)
+        np.testing.assert_allclose(g_s, g_1, atol=1e-9 * scale, rtol=1e-7)

@@ -1,21 +1,13 @@
-"""Fused Pallas kernel vs the XLA trace path: identical results by
-construction (same component step functions)."""
+"""Chained-frame fused-source engine vs the streamed trace: the same
+component step functions, so identical results up to float32
+reassociation; and the premask folding that the chained-frame engine
+relies on."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from attosecondraytracing_tpu.ops.pallas_trace import pallas_trace
 from attosecondraytracing_tpu.models import mirrors as mmirror, masks as mmask, supports as msupp
 from attosecondraytracing_tpu.models.placement import OEPlacement
-
-
-def _flagship(n):
-    focal, inc = 500.0, 80.0
-    R, r = mmirror.ReturnOptimalToroidalRadii(focal, inc)
-    tor = mmirror.MirrorToroidal(R, r, msupp.SupportRectangle(150, 32))
-    mask = mmask.Mask(msupp.SupportRoundHole(20, 7, 0, 0))
-    props = {"Divergence": 25e-3, "SourceSize": 0, "Wavelength": 80e-6, "DeltaFT": 0.5, "NumberRays": n}
-    return OEPlacement(props, [mask, tor, tor], [400, 100, 500], [0, inc, -inc], [0, 0, 0])
 
 
 def _cast32(b):
@@ -26,65 +18,30 @@ def _cast32(b):
     )
 
 
-def test_pallas_matches_xla_trace():
-    chain = _flagship(1000)  # not a multiple of the tile size -> padding path
-    src32 = _cast32(chain.source_rays)
-    elements = [e.to_device(dtype=jnp.float32) for e in chain.optical_elements]
-    ref = chain.trace_final()  # f64 reference for sanity
-
+def _chained_and_streamed(chain, ignore_defects=True):
+    """The same float32 bundle (the spec's own spiral) through the
+    chained-frame fused-source engine and the streamed lab-frame trace."""
+    from attosecondraytracing_tpu.ops.source import source_bundle
     from attosecondraytracing_tpu.ops.trace import trace
-    xla = trace(src32, elements, keep_history=False)
-    pal = pallas_trace(src32, elements)
+    from attosecondraytracing_tpu.ops.xla_source import xla_trace_source
 
-    np.testing.assert_array_equal(np.asarray(pal.alive), np.asarray(xla.alive))
-    a = np.asarray(xla.alive)
-    # float32 envelope: compiler reassociation shifts grazing-incidence hits
-    # by a few ulps of t (~1e3 mm), i.e. up to ~1e-2 mm at the worst rays
-    dp = np.abs(np.asarray(pal.p)[a] - np.asarray(xla.p)[a])
-    assert np.median(dp) < 1e-3
-    assert dp.max() < 5e-2
-    np.testing.assert_allclose(np.asarray(pal.opl)[a], np.asarray(xla.opl)[a], atol=0.1)
-    np.testing.assert_allclose(np.asarray(pal.incidence)[a], np.asarray(xla.incidence)[a], atol=1e-4)
-    # both agree with the float64 reference to the same envelope
-    assert (np.asarray(ref.alive) == a).mean() > 0.99
-    dref = np.abs(np.asarray(pal.p)[a] - np.asarray(ref.p)[a])
-    assert np.median(dref) < 1e-3 and dref.max() < 5e-2
-
-
-def test_pallas_fresh_path_matches_streamed():
-    """The fresh-source kernel (opl/alive/incidence synthesized in-kernel)
-    must agree exactly with the streamed-input kernel, and auto-detection
-    must pick it for factory-fresh bundles."""
-    from attosecondraytracing_tpu.ops.pallas_trace import _is_fresh
-
-    chain = _flagship(777)  # padding tail exercises the static alive mask
-    src32 = _cast32(chain.source_rays)
+    spec = chain.source_spec.baked()
+    n = chain.source_rays.n_rays
     elements = [e.to_device(dtype=jnp.float32) for e in chain.optical_elements]
-    assert _is_fresh(src32)
-
-    fresh = pallas_trace(src32, elements, fresh=True)
-    streamed = pallas_trace(src32, elements, fresh=False)
-    np.testing.assert_array_equal(np.asarray(fresh.alive), np.asarray(streamed.alive))
-    for leaf in ("p", "d", "opl", "opl_c", "incidence"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(fresh, leaf)), np.asarray(getattr(streamed, leaf)), err_msg=leaf
-        )
-
-    # a mid-chain bundle is NOT fresh (some rays dead, opl nonzero)
-    assert not _is_fresh(fresh)
+    out_x = trace(source_bundle(spec, n, wavelength=chain.source_spec.wavelength),
+                  elements, ignore_defects=ignore_defects, keep_history=False)
+    out_c = xla_trace_source(spec, elements, n,
+                             wavelength=chain.source_spec.wavelength,
+                             ignore_defects=ignore_defects)
+    return out_x, out_c
 
 
 def test_pallas_zernike_defect_parity():
-    """Zernike-deformed chains trace on the Pallas path (VERDICT r2 #3): the
-    kernel's in-kernel polynomial defect evaluation agrees ray-for-ray with
-    the XLA path, both with and without slope composition (ignore_defects)."""
-    import jax.numpy as jnp
-
+    """Zernike-deformed chains trace on the chained-frame fused-source engine
+    (in-jit polynomial defect evaluation) and agree ray-for-ray with the
+    streamed trace, both with and without slope composition
+    (ignore_defects)."""
     from attosecondraytracing_tpu.models import defects as mdef
-    from attosecondraytracing_tpu.models import mirrors as mmirror
-    from attosecondraytracing_tpu.models import supports as msupp
-    from attosecondraytracing_tpu.models.placement import OEPlacement
-    from attosecondraytracing_tpu.ops.pallas_trace import pallas_trace
     from attosecondraytracing_tpu.ops.trace import trace
 
     support = msupp.SupportRound(20)
@@ -94,25 +51,19 @@ def test_pallas_zernike_defect_parity():
     props = {"Divergence": 0, "SourceSize": 30, "Wavelength": 50e-6,
              "DeltaFT": 1.0, "NumberRays": 1500}
     chain = OEPlacement(props, [deformed], [200.0], [0.0])
-    elements = [e.to_device(dtype=jnp.float32) for e in chain.optical_elements]
-    import jax
-
-    src = jax.tree.map(
-        lambda x: np.asarray(x).astype(np.float32)
-        if np.issubdtype(np.asarray(x).dtype, np.floating) else np.asarray(x),
-        chain.source_rays,
-    )
     for ignore in (True, False):
-        out_x = trace(src, elements, ignore_defects=ignore, keep_history=False)
-        out_p = pallas_trace(src, elements, ignore_defects=ignore)
-        assert np.array_equal(np.asarray(out_x.alive), np.asarray(out_p.alive))
-        alive = np.asarray(out_x.alive)
+        out_x, out_c = _chained_and_streamed(chain, ignore_defects=ignore)
+        ax, ac = np.asarray(out_x.alive), np.asarray(out_c.alive)
+        assert (ax == ac).mean() > 0.999
+        alive = ax & ac
         assert alive.sum() > 1000
         np.testing.assert_allclose(
-            np.asarray(out_p.p)[alive], np.asarray(out_x.p)[alive], atol=2e-3)
+            np.asarray(out_c.p)[alive], np.asarray(out_x.p)[alive], atol=2e-3)
         np.testing.assert_allclose(
-            np.asarray(out_p.d)[alive], np.asarray(out_x.d)[alive], atol=2e-5)
+            np.asarray(out_c.d)[alive], np.asarray(out_x.d)[alive], atol=2e-5)
     # the defect must actually matter (slope composition changes directions)
+    elements = [e.to_device(dtype=jnp.float32) for e in chain.optical_elements]
+    src = _cast32(chain.source_rays)
     out_ig = trace(src, elements, ignore_defects=True, keep_history=False)
     out_no = trace(src, elements, ignore_defects=False, keep_history=False)
     a = np.asarray(out_ig.alive) & np.asarray(out_no.alive)
@@ -120,17 +71,12 @@ def test_pallas_zernike_defect_parity():
 
 
 def test_pallas_mixed_surface_chain_fuzz():
-    """Every surface type through the chained-frame Pallas kernel in ONE
-    chain, over several randomized source divergences and misalignments:
-    parity with the XLA trace on alive masks, impacts, directions, and OPL.
-    Covers the surface-specific intersect/normal branches (plane, sphere,
-    parabola, ellipsoid, cylinder, toroid + mask) that the flagship-chain
-    tests don't reach."""
-    import jax
-
-    from attosecondraytracing_tpu.models import defects as _  # noqa: F401
-    from attosecondraytracing_tpu.ops.trace import trace
-
+    """Every surface type through the chained-frame fused-source engine in
+    ONE chain, over several randomized source divergences and
+    misalignments: parity with the streamed trace on alive masks, impacts,
+    directions, and OPL. Covers the surface-specific intersect/normal
+    branches (plane, sphere, parabola, ellipsoid, cylinder, toroid + mask)
+    that the flagship-chain tests don't reach."""
     rng = np.random.default_rng(3)
     R, r = mmirror.ReturnOptimalToroidalRadii(500.0, 75.0)
     optics = [
@@ -157,26 +103,19 @@ def test_pallas_mixed_surface_chain_fuzz():
             k = int(rng.integers(1, len(optics)))
             chain.rotate_OE(k, "pitch", float(rng.normal(0, 0.02)))
             chain.shift_OE(k, "normal", float(rng.normal(0, 0.05)))
-        elements = [e.to_device(dtype=jnp.float32) for e in chain.optical_elements]
-        src = jax.tree.map(
-            lambda x: np.asarray(x).astype(np.float32)
-            if np.issubdtype(np.asarray(x).dtype, np.floating) else np.asarray(x),
-            chain.source_rays,
-        )
-        out_x = trace(src, elements, keep_history=False)
-        out_p = pallas_trace(src, elements)
-        ax, ap = np.asarray(out_x.alive), np.asarray(out_p.alive)
+        out_x, out_c = _chained_and_streamed(chain)
+        ax, ac = np.asarray(out_x.alive), np.asarray(out_c.alive)
         # float32 reassociation can flip support-edge hits; require ~identical
         # masks and enough survivors that the comparison is meaningful
-        assert (ax == ap).mean() > 0.995, (trial, (ax != ap).sum())
-        a = ax & ap
+        assert (ax == ac).mean() > 0.995, (trial, (ax != ac).sum())
+        a = ax & ac
         assert a.sum() > 300, (trial, a.sum())
-        dp = np.abs(np.asarray(out_p.p)[a] - np.asarray(out_x.p)[a])
+        dp = np.abs(np.asarray(out_c.p)[a] - np.asarray(out_x.p)[a])
         assert np.median(dp) < 2e-3 and dp.max() < 0.1, (trial, np.median(dp), dp.max())
         np.testing.assert_allclose(
-            np.asarray(out_p.d)[a], np.asarray(out_x.d)[a], atol=5e-5)
+            np.asarray(out_c.d)[a], np.asarray(out_x.d)[a], atol=5e-5)
         np.testing.assert_allclose(
-            np.asarray(out_p.opl)[a], np.asarray(out_x.opl)[a], atol=0.2)
+            np.asarray(out_c.opl)[a], np.asarray(out_x.opl)[a], atol=0.2)
 
 
 def test_premask_folding_semantics():

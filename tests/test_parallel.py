@@ -1,5 +1,5 @@
 """Sharding tests on the 8-virtual-device CPU mesh (SURVEY.md §4.4):
-identical code runs on a real TPU slice."""
+identical code runs on the cards of one host."""
 
 import jax
 import numpy as np

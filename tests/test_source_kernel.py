@@ -1,4 +1,4 @@
-"""Fused-source kernel: in-kernel Vogel synthesis vs the plain-jnp builder,
+"""Fused-source engine: in-jit Vogel synthesis vs the plain-jnp builder,
 and physics-statistics agreement with the host (float64) source factory."""
 
 import jax.numpy as jnp
@@ -11,12 +11,9 @@ from attosecondraytracing_tpu.models import sources as msource
 from attosecondraytracing_tpu.models import supports as msupp
 from attosecondraytracing_tpu.models.detector import Detector
 from attosecondraytracing_tpu.models.placement import OEPlacement
-from attosecondraytracing_tpu.ops.pallas_trace import (
-    make_source_spec,
-    pallas_trace_source,
-    source_bundle,
-)
+from attosecondraytracing_tpu.ops.source import make_source_spec, source_bundle
 from attosecondraytracing_tpu.ops.trace import trace
+from attosecondraytracing_tpu.ops.xla_source import xla_trace_source
 
 
 def _flagship(n):
@@ -55,15 +52,15 @@ def test_source_bundle_spiral_properties():
 
 
 def test_fused_source_kernel_matches_jnp_builder():
-    """pallas_trace_source == trace(source_bundle(...)) ray for ray (both
-    float32, same synthesized source)."""
+    """xla_trace_source == trace(source_bundle(...)) ray for ray (both
+    float32, same synthesized source; chained vs lab frames)."""
     chain = _flagship(2000)
     elements = [e.to_device(dtype=jnp.float32) for e in chain.optical_elements]
     spec = make_source_spec("cone", np.zeros(3), np.array([1.0, 0, 0]), 25e-3)
 
     src = source_bundle(spec, 2000, wavelength=80e-6)
     xla = trace(src, elements, keep_history=False)
-    fused = pallas_trace_source(spec, elements, 2000, wavelength=80e-6)
+    fused = xla_trace_source(spec, elements, 2000, wavelength=80e-6)
 
     a_x, a_f = np.asarray(xla.alive), np.asarray(fused.alive)
     assert (a_x == a_f).mean() > 0.999  # edge rays may flip by reassociation
@@ -81,7 +78,7 @@ def test_fused_source_statistics_match_host_source():
     elements = [e.to_device(dtype=jnp.float32) for e in chain.optical_elements]
     spec = make_source_spec("cone", np.zeros(3), np.array([1.0, 0, 0]), 25e-3)
 
-    fused = pallas_trace_source(spec, elements, n, wavelength=80e-6)
+    fused = xla_trace_source(spec, elements, n, wavelength=80e-6)
     host_out = chain.trace_final()
 
     # transmission (uniform intensities): surviving fraction

@@ -1,5 +1,5 @@
-"""In-kernel 'square' source kind (VERDICT r4 #6): the grid-index decode
-(ops/pallas_trace.synth_source_c kind='square') must reproduce the host
+"""In-jit 'square' source kind (VERDICT r4 #6): the grid-index decode
+(ops/source.synth_source_c kind='square') must reproduce the host
 PlaneWaveSquare bundle and unlock the fused engines for the last source kind
 outside the fused universe (the reference's PlaneWaveSquare intent,
 ART/ModuleSource.py:173-207 — broken there, fixed in models.sources)."""
@@ -13,8 +13,8 @@ from attosecondraytracing_tpu.models import supports as msupp
 from attosecondraytracing_tpu.models.chain import OpticalChain
 from attosecondraytracing_tpu.models.detector import Detector
 from attosecondraytracing_tpu.models.elements import OpticalElement
-from attosecondraytracing_tpu.ops import pallas_scan as ps
-from attosecondraytracing_tpu.ops import pallas_trace as pt
+from attosecondraytracing_tpu.ops import source as pt
+from attosecondraytracing_tpu.ops import xla_source as xs
 from attosecondraytracing_tpu.ops.trace import trace_jit
 
 SIDE = 12.0     # mm
@@ -64,7 +64,7 @@ def test_source_bundle_matches_host_square():
 
 
 def test_square_gaussian_weights_match_host():
-    """In-kernel weight law edge**rr (corner-normalized) == the host
+    """In-jit weight law edge**rr (corner-normalized) == the host
     ApplyGaussianIntensityToRayList profile on the same grid."""
     chain = _square_chain()
     spec = chain.source_spec
@@ -113,7 +113,7 @@ def test_square_moments_match_streamed_trace():
     out = trace_jit(chain.source_rays, elements, keep_history=False)
     det = Detector(chain.optical_elements[-1].position)
     det.autoplace(out, 100.0)
-    mom = pt.pallas_source_detector_moments(
+    mom = xs.xla_source_moments(
         baked, elements, spec.n_rays, det.centre, det.normal,
         det._plane_rotation(), gaussian_edge=spec.gaussian_edge)
     # reference moment 0: total surviving Gaussian weight of the host trace
@@ -124,22 +124,35 @@ def test_square_moments_match_streamed_trace():
 
 
 def test_square_scan_engine_parity():
-    """A square chain evaluates through the runtime-scalar scan kernel
-    (ScanSpec kind='square') and reproduces the baked moment kernel."""
+    """A square chain evaluates through the fused scan closure
+    (device-resident geometry) and reproduces the streamed detector path's
+    spot statistics at several distances."""
+    from attosecondraytracing_tpu.ops import moments as pm
+
     chain = _square_chain()
     baked = chain.source_spec.baked()
     elements = [e.to_device(dtype=np.float32) for e in chain.optical_elements]
-    out = trace_jit(chain.source_rays, elements, keep_history=False)
+    out = trace_jit(pt.source_bundle(baked, chain.source_spec.n_rays,
+                                     wavelength=WL), elements,
+                    keep_history=False)
     det = Detector(chain.optical_elements[-1].position)
-    det.autoplace(out, 100.0)
+    det.autoplace(out, 97.0)
     n = chain.source_spec.n_rays
-    mom_ref = pt.pallas_source_detector_moments(
-        baked, elements, n, det.centre, det.normal, det._plane_rotation())
-    spec = ps.make_scan_spec("square", elements, n, n_each=baked.n_each)
-    fn = ps.make_moments_fn(spec, elements, chain.source_spec, n)
-    mom_scan = fn(det.centre, det.normal, det._plane_rotation())
-    np.testing.assert_allclose(mom_scan["moments"], mom_ref["moments"],
-                               rtol=1e-4, atol=1e-4)
+    fn = xs.make_xla_moments_fn(baked, elements, n)
+    mom = fn(det.centre, det.normal, det._plane_rotation())
+    distances = (-2.0, 0.0, 2.0)
+    res = pm.sums_to_stats(
+        pm.moments_to_distance_sums(mom["moments"], distances,
+                                    mom["centre_distance"]),
+        mom["opl_ref"], distances)
+    alive = np.asarray(out.alive)
+    for j, dist in enumerate(distances):
+        dj = det.copy_detector()
+        dj.shiftByDistance(dist)
+        xy = np.asarray(dj.get_PointList2D(out), np.float64)[alive]
+        spot_ref = float(np.sqrt(xy.var(axis=0).sum()))
+        assert res["spot_sd"][j] == pytest.approx(spot_ref, rel=5e-3), dist
+    assert res["sum_w"][0] == pytest.approx(alive.sum(), rel=1e-6)
 
 
 def test_square_total_source_weight_closed_form():
@@ -149,7 +162,7 @@ def test_square_total_source_weight_closed_form():
     X, Y = np.meshgrid(xs, xs, indexing="ij")
     rr = 2.0 * (X**2 + Y**2)
     direct = float(np.exp(np.log(edge) * rr).sum())
-    got = ps.total_source_weight(n_side * n_side, edge, n_each=n_side,
+    got = pt.total_source_weight(n_side * n_side, edge, n_each=n_side,
                                  kind="square")
     assert got == pytest.approx(direct, rel=1e-12)
 
@@ -161,9 +174,10 @@ def test_driver_scan_routes_square_chains_through_scan_engine(monkeypatch):
     from attosecondraytracing_tpu import main as amain
     from attosecondraytracing_tpu.models import chain as mchain
 
-    monkeypatch.setattr(mchain, "PALLAS_MIN_RAYS", 1024)
-    monkeypatch.setattr(mchain.OpticalChain, "_pallas_eligible",
-                        lambda self, els: True)
+    import jax
+
+    monkeypatch.setattr(mchain, "FUSED_MIN_RAYS", 1024)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     monkeypatch.setattr(amain, "_CLI_ACTIVE", True)
 
     chains = _square_chain(4096).get_OE_loop_list(
@@ -173,7 +187,7 @@ def test_driver_scan_routes_square_chains_through_scan_engine(monkeypatch):
           "OptFor": "spotsize"}
     ao = {"verbose": False, "save_results": False}
     kept = amain.main(chains, sp, do, ao)
-    assert all(c.last_trace_engine == "pallas-scan" for c in chains)
+    assert all(c.last_trace_engine == "xla-scan" for c in chains)
     # tilting the mirror moves the focus: distances stay near f=100 and the
     # middle (aligned) chain focuses tightest
     dists = [d.get_distance() for d in kept["Detector"]]
@@ -183,17 +197,17 @@ def test_driver_scan_routes_square_chains_through_scan_engine(monkeypatch):
 
 
 def test_square_trace_final_uses_fused_engine(monkeypatch):
-    """trace_final routes a square chain to the fused source kernel, and
+    """trace_final routes a square chain to the fused-source engine, and
     resize_source regenerates the grid from the spec."""
     from attosecondraytracing_tpu.models import chain as mchain
 
-    monkeypatch.setattr(mchain, "PALLAS_MIN_RAYS", 1024)
+    monkeypatch.setattr(mchain, "FUSED_MIN_RAYS", 1024)
     chain = _square_chain()
     chain.resize_source(4096)
     assert chain.source_rays.n_rays == 64 * 64
     assert chain.source_spec.n_rays == 64 * 64
-    out_fused = chain.trace_final(engine="pallas")
-    assert chain.last_trace_engine == "pallas-source"
+    out_fused = chain.trace_final(engine="xla-source")
+    assert chain.last_trace_engine == "xla-source"
     ref = trace_jit(chain.source_rays,
                     [e.to_device() for e in chain.optical_elements],
                     keep_history=False)

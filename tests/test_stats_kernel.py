@@ -1,5 +1,6 @@
-"""Fused trace->detector-statistics kernel vs the composed reference path
-(trace + Detector responses + weighted SD reductions)."""
+"""Fused trace->detector-statistics pass (XLA fused-source engine + moment
+epilogue) vs the composed reference path (trace + Detector responses +
+weighted SD reductions)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,12 +12,9 @@ from attosecondraytracing_tpu.models import mirrors as mmirror
 from attosecondraytracing_tpu.models import supports as msupp
 from attosecondraytracing_tpu.models.detector import Detector
 from attosecondraytracing_tpu.models.placement import OEPlacement
-from attosecondraytracing_tpu.ops.pallas_trace import (
-    make_source_spec,
-    pallas_source_detector_stats,
-    source_bundle,
-)
+from attosecondraytracing_tpu.ops.source import make_source_spec, source_bundle
 from attosecondraytracing_tpu.ops.trace import trace
+from attosecondraytracing_tpu.ops.xla_source import xla_source_detector_stats
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +42,7 @@ def setup():
 def test_stats_kernel_matches_detector_path(setup):
     spec, elements, n, out, det = setup
     distances = (-20.0, -5.0, 0.0, 5.0, 20.0)
-    res = pallas_source_detector_stats(
+    res = xla_source_detector_stats(
         spec, elements, n, det.centre, det.normal, det._plane_rotation(),
         distances=distances,
     )
@@ -54,8 +52,8 @@ def test_stats_kernel_matches_detector_path(setup):
         dj.shiftByDistance(dist)
         spot, dur = (float(v) for v in dj.get_SpotAndDuration(out))
         assert res["spot_sd"][j] == pytest.approx(spot, rel=2e-3, abs=1e-6), dist
-        # duration: the kernel's f32 OPL noise (~0.6 fs/ray, same class as
-        # the XLA path's 0.4 fs floor) adds in quadrature to the true SD
+        # duration: the fused pass's f32 OPL noise (~0.6 fs/ray, same class
+        # as the streamed path's 0.4 fs floor) adds in quadrature
         k, r = float(res["duration_sd"][j]), dur
         assert abs(k - r) <= 0.025 * r or abs(k * k - r * r) ** 0.5 <= 0.8, (dist, k, r)
     # unweighted survivors
@@ -64,7 +62,7 @@ def test_stats_kernel_matches_detector_path(setup):
 
 def test_stats_kernel_gaussian_weights(setup):
     spec, elements, n, out, det = setup
-    res = pallas_source_detector_stats(
+    res = xla_source_detector_stats(
         spec, elements, n, det.centre, det.normal, det._plane_rotation(),
         distances=(0.0,), gaussian_edge=float(1 / np.e**2),
     )
@@ -84,18 +82,18 @@ def test_stats_kernel_gaussian_weights(setup):
 
 
 def test_pallas_optimizer_matches_bundle_optimizer(setup):
-    """FindOptimalDistancePallas lands on the same detector distance as the
+    """FindOptimalDistanceFused lands on the same detector distance as the
     bundle-based FindOptimalDistance on the same physics."""
     from attosecondraytracing_tpu.analysis.optimizer import (
         FindOptimalDistance,
-        FindOptimalDistancePallas,
+        FindOptimalDistanceFused,
     )
 
     spec, elements, n, out, det = setup
     d_ref, spot_ref, _ = FindOptimalDistance(
         det, out, OptFor="spotsize", Amplitude=30.0, Precision=2
     )
-    d_pal, spot_pal, _ = FindOptimalDistancePallas(
+    d_pal, spot_pal, _ = FindOptimalDistanceFused(
         spec, elements, n, det, OptFor="spotsize", Amplitude=30.0, Precision=2
     )
     assert d_pal.get_distance() == pytest.approx(d_ref.get_distance(), abs=0.05)
@@ -103,11 +101,11 @@ def test_pallas_optimizer_matches_bundle_optimizer(setup):
 
 
 def test_stats_kernel_full_scan_matches_optimizer_shape(setup):
-    """A 21-point scan in one kernel call brackets the focus: the spot-SD
+    """A 21-point scan in one fused pass brackets the focus: the spot-SD
     curve is V-shaped around its minimum."""
     spec, elements, n, out, det = setup
     distances = tuple(np.linspace(-80, 80, 21))
-    res = pallas_source_detector_stats(
+    res = xla_source_detector_stats(
         spec, elements, n, det.centre, det.normal, det._plane_rotation(),
         distances=distances,
     )
@@ -144,7 +142,7 @@ def test_sharded_spiral_partition_matches_global():
 
 def test_sharded_source_stats_matches_single_device(setup):
     """source_stats_sharded over the 8-virtual-device mesh == the
-    single-device stats kernel (same global spiral, partial sums combined
+    single-device fused stats (same global spiral, partial sums combined
     across shards)."""
     import jax
     from attosecondraytracing_tpu.parallel.mesh import source_stats_sharded
@@ -154,7 +152,7 @@ def test_sharded_source_stats_matches_single_device(setup):
     distances = (-10.0, 0.0, 10.0)
     kw = dict(det_centre=det.centre, det_normal=det.normal,
               det_rot=det._plane_rotation(), distances=distances)
-    res_1 = pallas_source_detector_stats(spec, elements, 16384, **kw)
+    res_1 = xla_source_detector_stats(spec, elements, 16384, **kw)
     res_8 = source_stats_sharded(spec, elements, 16384, mesh, **kw)
     np.testing.assert_allclose(res_8["sum_w"], res_1["sum_w"], rtol=2e-3)
     np.testing.assert_allclose(res_8["spot_sd"], res_1["spot_sd"], rtol=2e-3)
@@ -162,18 +160,16 @@ def test_sharded_source_stats_matches_single_device(setup):
 
 
 def test_chunked_stats_match_single_pass(setup):
-    """Internal >2^23-ray chunking is exercised by monkeypatching the chunk
-    size: chunked accumulation must reproduce the single-pass sums."""
-    from attosecondraytracing_tpu.ops import pallas_trace as pt
+    """The >2^23-ray chunk law: quarter-range calls at the (phase, k_frac)
+    offsets of the global spiral must reproduce the single-pass sums."""
+    from attosecondraytracing_tpu.ops import source as psrc
+    from attosecondraytracing_tpu.ops import xla_source as mod
 
     spec, elements, n, out, det = setup
     kw = dict(det_centre=det.centre, det_normal=det.normal,
               det_rot=det._plane_rotation(), distances=(0.0, 10.0))
-    res_1 = pallas_source_detector_stats(spec, elements, 16384, **kw)
-
-    import attosecondraytracing_tpu.ops.pallas_trace as mod
-    src = open(mod.__file__).read()
-    assert "CHUNK = 1 << 23" in src  # keep the monkeypatch honest
+    res_1 = xla_source_detector_stats(spec, elements, 16384, **kw)
+    assert mod.CHUNK == 1 << 23  # the production chunk size
 
     # simulate chunking by composing 4 quarter-range calls the way the
     # chunk loop does (phase/k_frac per offset) and summing raw moments
@@ -183,9 +179,9 @@ def test_chunked_stats_match_single_pass(setup):
     agg = None
     for i in range(n_chunks):
         off = i * n_local
-        r = pallas_source_detector_stats(
+        r = xla_source_detector_stats(
             spec, elements, n_local,
-            phase=float(_np.mod(off * pt._PHI_FRAC, 1.0)),
+            phase=float(_np.mod(off * psrc.PHI_FRAC, 1.0)),
             k_frac=off / n_total, n_total=n_total, **kw)
         w = r["sum_w"]
         part = {
@@ -204,7 +200,7 @@ def test_chunked_stats_match_single_pass(setup):
 
 def test_duration_floor_triggers_x64_refinement(setup, capsys):
     """At a stigmatic 2f-2f focus the true duration SD is far below the
-    kernel's ~0.6 fs float32 noise floor; the optimizer must detect this and
+    fused pass's ~0.6 fs float32 noise floor; the optimizer must detect this and
     refine with the two-pass float64 path, landing on the float64 optimizer's
     distance (VERDICT r2 #7)."""
     import jax
@@ -212,13 +208,12 @@ def test_duration_floor_triggers_x64_refinement(setup, capsys):
 
     from attosecondraytracing_tpu.analysis.optimizer import (
         FindOptimalDistance,
-        FindOptimalDistancePallas,
+        FindOptimalDistanceFused,
     )
-    from attosecondraytracing_tpu.ops.pallas_trace import source_bundle
     from attosecondraytracing_tpu.ops.trace import trace as _trace
 
     spec, elements, n, out, det = setup
-    d_pal, spot_pal, dur_pal = FindOptimalDistancePallas(
+    d_pal, spot_pal, dur_pal = FindOptimalDistanceFused(
         spec, elements, n, det, OptFor="duration", Amplitude=30.0, Precision=2,
         verbose=True,
     )
@@ -241,15 +236,15 @@ def test_duration_floor_triggers_x64_refinement(setup, capsys):
 
 
 def test_moment_scan_unbounded_distances(setup):
-    """The moment epilogue removes the old 128-distance-per-call limit: a
-    300-distance scan runs in one kernel pass (the distance dependence is an
+    """The moment epilogue has no per-call distance limit: a 300-distance
+    scan runs in one fused pass (the distance dependence is an
     exact quadratic evaluated on host in f64) and agrees with the
     per-distance detector path at sampled positions; consecutive calls with
     different distance sets must also agree with each other exactly on the
     shared moments (w is distance-independent)."""
     spec, elements, n, out, det = setup
     distances = tuple(np.linspace(-30.0, 30.0, 300))
-    res = pallas_source_detector_stats(
+    res = xla_source_detector_stats(
         spec, elements, n, det.centre, det.normal, det._plane_rotation(),
         distances=distances,
     )
@@ -264,7 +259,7 @@ def test_moment_scan_unbounded_distances(setup):
         k, r = float(res["duration_sd"][j]), dur
         assert abs(k - r) <= 0.025 * r or abs(k * k - r * r) ** 0.5 <= 0.8, (j, k, r)
     # same moments, different distance grid: identical where grids overlap
-    res2 = pallas_source_detector_stats(
+    res2 = xla_source_detector_stats(
         spec, elements, n, det.centre, det.normal, det._plane_rotation(),
         distances=(distances[0], distances[299]),
     )
@@ -274,11 +269,11 @@ def test_moment_scan_unbounded_distances(setup):
 def test_pallas_optimizer_far_off_focus_start():
     """Regression (round-3 review): with the detector initially placed far
     from the focus, the f32 moment accumulator must not bury the focal-plane
-    variance (multi-mm x0 spreads squared in-kernel) — the probe-based
+    variance (multi-mm x0 spreads squared on the device) — the probe-based
     expansion-point pre-centering keeps the moments small. The optimizer must
     land on the same focus as when started near it."""
     from attosecondraytracing_tpu.analysis.optimizer import (
-        FindOptimalDistancePallas,
+        FindOptimalDistanceFused,
     )
     from attosecondraytracing_tpu.models.detector import Detector as Det
 
@@ -298,12 +293,12 @@ def test_pallas_optimizer_far_off_focus_start():
     # start 300 mm short of the 2f refocus: x0 spreads are ~7.5 mm
     det_far = Det(np.zeros(3))
     det_far.autoplace(out, focal - 300.0)
-    d_far, spot_far, _ = FindOptimalDistancePallas(
+    d_far, spot_far, _ = FindOptimalDistanceFused(
         spec, elements, 60000, det_far, "spotsize", Amplitude=400.0)
 
     det_near = Det(np.zeros(3))
     det_near.autoplace(out, focal - 10.0)
-    d_near, spot_near, _ = FindOptimalDistancePallas(
+    d_near, spot_near, _ = FindOptimalDistanceFused(
         spec, elements, 60000, det_near, "spotsize", Amplitude=30.0)
 
     assert d_far.get_distance() == pytest.approx(d_near.get_distance(), abs=0.5)
@@ -315,11 +310,12 @@ def test_pallas_optimizer_arbitrary_precision(setup, monkeypatch):
     """The host-side grid zoom reaches amplitude*10^-(Precision+1) for ANY
     Precision (ADVICE r3: the old single 200k-point grid floored the
     resolution at amplitude*1e-5). Synthetic moments with a known irrational
-    minimum isolate the refinement logic from kernel noise."""
+    minimum isolate the refinement logic from device noise."""
     from attosecondraytracing_tpu.analysis.optimizer import (
-        FindOptimalDistancePallas,
+        FindOptimalDistanceFused,
     )
-    from attosecondraytracing_tpu.ops import pallas_trace as pt
+    from attosecondraytracing_tpu.ops import moments as pt
+    from attosecondraytracing_tpu.ops import xla_source
 
     spec, elements, n, out, det = setup
     d_true_rel = 7.654321e-3  # mm, relative to the expansion point
@@ -337,9 +333,9 @@ def test_pallas_optimizer_arbitrary_precision(setup, monkeypatch):
             "opl_ref": 0.0, "inv_dn_chief": 0.0, "centre_distance": centre,
         }
 
-    monkeypatch.setattr(pt, "pallas_source_detector_moments", fake_moments)
+    monkeypatch.setattr(xla_source, "xla_source_moments", fake_moments)
     first = det.get_distance()
-    d_opt, spot, _ = FindOptimalDistancePallas(
+    d_opt, spot, _ = FindOptimalDistanceFused(
         spec, elements, n, det, OptFor="spotsize", Amplitude=30.0, Precision=6,
     )
     expected_shift = recorded["centre"] + d_true_rel
@@ -350,8 +346,8 @@ def test_pallas_optimizer_arbitrary_precision(setup, monkeypatch):
 
 def test_probe_focus_estimate_weighting():
     """Intensity weights shift the probe focus estimate toward the weighted
-    sub-beam's focus (ADVICE r3: the expansion point must match the kernel's
-    weighted moments)."""
+    sub-beam's focus (ADVICE r3: the expansion point must match the fused
+    pass's weighted moments)."""
     from attosecondraytracing_tpu.analysis.optimizer import _probe_focus_estimate
     from attosecondraytracing_tpu.models.detector import Detector as Det
     from attosecondraytracing_tpu.ops.bundle import make_bundle

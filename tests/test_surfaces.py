@@ -171,8 +171,8 @@ def test_float32_delay_noise_floor():
     # ~ulp(1000 mm)/c ~ 0.2 fs per leg (two legs + detector projection).
     # Round-3 note: this used to read 0.197 because to_device(f32) left
     # surface scalars as STRONG np.float64 — under the x64 test env those
-    # silently promoted the intersection math to f64, which a real TPU
-    # (no x64) never does. Since round 4 the scalars are weak python floats,
+    # silently promoted the intersection math to f64, which an accelerator
+    # run (no x64) never does. Since round 4 the scalars are weak python floats,
     # so this measures the honest all-f32 floor the hardware actually has.
     assert np.std(dl32 - dl64) < 0.45
     dp = np.asarray(out32.p)[a] - np.asarray(out64.p)[a]
